@@ -12,15 +12,26 @@ Phases, in order; any failure exits non-zero:
 2. Kernel checks: compile the 100- and 10k-pattern bench rulesets and,
    on 16 MB corpora, hold kernel A (teddy_filter_compact, class and byte
    tables) and kernel B (teddy_hash_confirm) against their plain PyTorch
-   versions on the card. Tolerance: exact (every value is an integer).
-3. The main path at full size: `scan_batch` with the 10k ruleset over a
-   512 MB corpus, structured and iid. The planted matches must be found,
-   the verified pairs of the first 64 MB must equal the port's host path
-   (teddy_filter_host + confirm_candidates), and both kernels' launch
-   counters must have risen during the main-path scans.
+   versions on the card. Then compile one database per general-engine
+   route (the JAX package's per-kernel bench sets) and hold kernel C
+   (dfa_scan: a bounded DFA with shared and with global tables, H = 0
+   with carried entry states, the lazy-DFA core of a cyclic NFA) and
+   kernel D (nfa_layered: EOD accepts, P > 48) against theirs over a
+   16 MB batch of blocks. Tolerance: exact (every value is an integer).
+3. The literal path at full size: `scan_batch` with the 10k ruleset over
+   a 512 MB corpus, structured and iid. The planted matches must be
+   found, the verified pairs of the first 64 MB must equal the port's
+   host path (teddy_filter_host + confirm_candidates), and kernels A and
+   B must have been launched during these scans.
+   The engine path at full size: each route's database through
+   `scan_batch` over 256 MiB, as one block and as 16,384 blocks of
+   16 KiB; every repeat equals the first scan, the match lists over a
+   32 MiB prefix equal the port's host path, and kernels C and D must
+   have been launched during these scans.
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
-   and per-kernel times at the main path's shapes, beside their bounds
-   and their plain versions' times.
+   and per-kernel times at the main paths' shapes, beside their bounds
+   and their plain versions' times; the seconds of the speculative
+   scans' host chains.
 5. One JSON line listing every kernel, the card's name and power limit
    as nvidia-smi reports them, and the final status line.
 
@@ -207,6 +218,366 @@ def kernel_checks(torch, T, dbs):
                 f"candidates {total}, max cell {int(cnt.max())}, "
                 f"hash-matched pairs {int(tot)}: exact")
     return err_a, err_b
+
+
+# --- the engine path: the general engines (DFA and bit-NFA) ------------------
+
+ENGINE_BYTES = 256 * MB
+ENGINE_BLOCK = 16 * 1024  # the batch shape: 16,384 blocks of 16 KiB
+ENGINE_HOST_BYTES = 32 * MB
+# one database per device route, the JAX package's per-kernel bench sets
+# (tools_bench_kernels.py:19-22, :88-91, :152-155, :214): (patterns,
+# flags, Grey tunables, the route's kernel)
+ENGINE_SETS = {
+    "bounded_dfa": ([r"ab[cd]{2,6}ef", r"[0-9]{3}-[0-9]{4}",
+                     r"GET /[a-z]{1,12} "], [0, 0, 0],
+                    {"allow_teddy": False}, "dfa_scan"),
+    "unbounded_dfa": ([r"\d+[a-z]{3,}\d+"], [2],  # DOTALL
+                      {"allow_teddy": False}, "dfa_scan"),
+    "cyclic_nfa": ([r"(ax|by|cz|dw)+[!]"], [0],
+                   {"max_dfa_states": 8, "allow_teddy": False}, "dfa_scan"),
+    "acyclic_nfa": ([r".*a.{18}b"], [0], {}, "nfa_layered"),
+}
+ENGINE_PLANTS = [b"abcdef", b"abddddef", b"555-1212", b"GET /index ",
+                 b"12abc34", b"9zzzzzzzz8", b"axbycz!", b"dwdw!",
+                 b"a" + b"q" * 18 + b"b", b"x12345678y"]
+INT_OPS_PER_S = 67e12  # H100 SXM scalar 32-bit rate (FP32 non-tensor)
+
+
+def gen_engine_corpus(n: int, salt: int) -> np.ndarray:
+    """The iid printable corpus with one engine plant every 4099 bytes
+    (a prime stride, so plants fall across every chunk alignment)."""
+    corpus = gen_corpus(n, salt, "iid")
+    for k, off in enumerate(range(64, n - 32, 4099)):
+        p = ENGINE_PLANTS[k % len(ENGINE_PLANTS)]
+        corpus[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    return corpus
+
+
+def engine_dbs(ht):
+    """route -> (device database, host database): the same patterns,
+    the host one with host_scan_limit above ENGINE_HOST_BYTES."""
+    from hyperscan_tpu_torch.database import (DfaEngine, NfaEngine,
+                                              compile_patterns)
+    from hyperscan_tpu_torch.grey import Grey
+    from hyperscan_tpu_torch.ops.nfa_kernel import nfa_device_eligible
+
+    out = {}
+    for route, (pats, flags, grey, _k) in ENGINE_SETS.items():
+        t0 = time.perf_counter()
+        dev = compile_patterns(pats, flags, grey=Grey(**grey))
+        host = compile_patterns(pats, flags, grey=Grey(
+            host_scan_limit=2 * ENGINE_HOST_BYTES, **grey))
+        (eng,) = dev.engines
+        want = {"bounded_dfa": DfaEngine, "unbounded_dfa": DfaEngine,
+                "cyclic_nfa": NfaEngine, "acyclic_nfa": NfaEngine}[route]
+        check(dev.lit is None and isinstance(eng, want),
+              f"{route}: unexpected engines {dev.engines}")
+        if route == "bounded_dfa":
+            check(eng.max_depth is not None, "bounded DFA has no depth")
+        if route == "unbounded_dfa":
+            check(eng.max_depth is None, "unbounded DFA has a depth")
+        if route == "cyclic_nfa":
+            check(not eng.acyclic and eng.spec_dfa is not None,
+                  "cyclic NFA without a lazy-DFA core")
+        if route == "acyclic_nfa":
+            check(nfa_device_eligible(eng), "acyclic NFA not eligible")
+        shape = (f"S={eng.trans.shape[0]} C={eng.trans.shape[1]} depth "
+                 f"{eng.max_depth}" if isinstance(eng, DfaEngine) else
+                 f"P={eng.num_positions} depth {eng.max_depth}"
+                 + (f", spec_dfa S={eng.spec_dfa.trans.shape[0]}"
+                    if eng.spec_dfa is not None else ""))
+        log(f"engine route {route}: {shape}, compiled in "
+            f"{time.perf_counter() - t0:.2f} s")
+        out[route] = (dev, host)
+    return out
+
+
+def chunk_inputs(torch, eng, corpus, blocks_lens, H, CS, entry):
+    """Kernel C's inputs for blocks of `blocks_lens` bytes laid head to
+    head over `corpus`, on the card."""
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+
+    lens = np.asarray(blocks_lens, np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    plan = DK.plan_chunks(starts, lens, H, CS, entry, eng.float_state)
+    corpus_t = torch.from_numpy(corpus[:int(lens.sum())]).to(DEVICE)
+    return (corpus_t, DK.device_tables(eng, DEVICE),
+            torch.from_numpy(plan.meta).to(DEVICE), plan, starts, lens)
+
+
+def compare_dfa(torch, DK, corpus_t, tabs, meta, H, placement):
+    """Kernel C vs its plain version on the same inputs: the same total,
+    record set and finals. Returns (kernel outputs, max abs error)."""
+    cap = 1 << 22
+    rk, tk, fk = DK.dfa_scan_chunks(corpus_t, tabs, meta, H, cap,
+                                    placement=placement)
+    rp, tp, fp = DK.dfa_scan_chunks_plain(corpus_t, tabs, meta, H, cap)
+    torch.cuda.synchronize()
+    check(int(tk) == int(tp) <= cap, "kernel C total != plain version")
+    k = int(tp)
+
+    def rows(r):
+        r = r[:k].long()
+        return r[torch.argsort(r[:, 0] * 512 + r[:, 1])]
+
+    err = max(int((fk - fp).abs().max()) if fk.numel() else 0,
+              int((rows(rk) - rows(rp)).abs().max()) if k else 0)
+    check(err == 0, f"kernel C ({placement}) != plain version")
+    return (rk, tk, fk), err
+
+
+def compare_nfa(torch, NK, corpus_t, plan, bs, be, ba):
+    """Kernel D vs its plain version. Returns (kernel outputs, err)."""
+    cap = 1 << 22
+    rk, tk, ek = NK.nfa_layered(corpus_t, plan, bs, be, ba, cap)
+    rp, tp, ep = NK.nfa_layered_plain(corpus_t, plan, bs, be, ba, cap)
+    torch.cuda.synchronize()
+    check(int(tk) == int(tp) <= cap, "kernel D total != plain version")
+    k = int(tp)
+
+    def rows(r):
+        r = r[:k].long()
+        return r[torch.argsort(r[:, 0])]
+
+    err = max(int((ek - ep).abs().max()) if ek.numel() else 0,
+              int((rows(rk) - rows(rp)).abs().max()) if k else 0)
+    check(err == 0, "kernel D != plain version")
+    return (rk, tk, ek), err
+
+
+def engine_kernel_checks(torch, edbs):
+    """Phase 2b: kernels C and D against their plain versions at 16 MB,
+    exact. Kernel C: a bounded DFA (shared tables, then the global
+    placement forced), H = 0 with carried entry states, and the
+    spec_dfa of a cyclic NFA; kernel D: EOD accepts, and P > 48."""
+    from hyperscan_tpu_torch.database import compile_patterns
+    from hyperscan_tpu_torch.grey import Grey
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import nfa_kernel as NK
+
+    corpus = gen_engine_corpus(CHECK_BYTES, 3)
+    # several blocks: an empty one, unaligned tails, one of one byte
+    lens = [CHECK_BYTES - 200_003, 0, 100_000, 1, 99_999, 3]
+    rng = np.random.default_rng(4)
+    err_c = err_d = 0
+    bdb = edbs["bounded_dfa"][0].engines[0]
+    udb = edbs["unbounded_dfa"][0].engines[0]
+    spec = edbs["cyclic_nfa"][0].engines[0].spec_dfa
+    cases = [
+        ("bounded DFA, shared tables", bdb, *DK.chunk_shape(bdb), "shared",
+         np.full(len(lens), bdb.start_state)),
+        ("bounded DFA, global tables", bdb, *DK.chunk_shape(bdb), "global",
+         np.full(len(lens), bdb.start_state)),
+        ("unbounded DFA, H=0, carried states", udb, 0, DK.SPEC_CS, None,
+         rng.integers(0, udb.num_states, size=len(lens))),
+        ("spec_dfa of the cyclic NFA", spec, 0, DK.SPEC_CS, None,
+         np.full(len(lens), spec.start_state)),
+    ]
+    for (name, eng, H, CS, placement, entry) in cases:
+        corpus_t, tabs, meta, _plan, _s, _l = chunk_inputs(
+            torch, eng, corpus, lens, H, CS, entry)
+        (_r, tot, _f), e = compare_dfa(torch, DK, corpus_t, tabs, meta, H,
+                                       placement)
+        err_c = max(err_c, e)
+        log(f"kernel check C, {name}: H={H}, {meta.shape[0]} chunks, "
+            f"tables {tabs.nbytes} B, {int(tot)} records: exact")
+    for name, pat in (("EOD accepts", r".*x.{8}(y|z)$"),
+                      ("P > 48", r".*a.{60}b")):
+        eng = compile_patterns([pat], grey=Grey(
+            max_dfa_states=8, allow_teddy=False)).engines[0]
+        check(NK.nfa_device_eligible(eng), f"{pat} not device eligible")
+        c2 = corpus.copy()
+        ends = np.cumsum(lens)
+        for e in ends[[0, 2, 4]]:  # EOD accepts at three block ends
+            c2[e - 10:e] = np.frombuffer(b"x\xff2345678z", np.uint8)
+        corpus_t = torch.from_numpy(c2).to(DEVICE)
+        plan = NK.device_plan(eng, DEVICE)
+        starts = np.concatenate([[0], ends[:-1]])
+        bs, be, ba, _ne = NK.block_bounds(starts, lens,
+                                          np.ones(len(lens), bool), DEVICE)
+        (_r, tot, eod), e = compare_nfa(torch, NK, corpus_t, plan, bs, be,
+                                        ba)
+        err_d = max(err_d, e)
+        check(name != "EOD accepts" or int((eod != 0).sum()) == 3,
+              "EOD bits missing")
+        log(f"kernel check D, {name}: P={plan.P}, edges {plan.E}, classes "
+            f"{plan.K}, {int(tot)} records, {int((eod != 0).sum())} EOD "
+            f"blocks: exact")
+    return err_c, err_d
+
+
+def engine_blocks(corpus: np.ndarray, shape: str):
+    """The two main-path shapes over one corpus: one block, or blocks of
+    ENGINE_BLOCK bytes."""
+    if shape == "one_block":
+        return [corpus]
+    return [corpus[i:i + ENGINE_BLOCK]
+            for i in range(0, len(corpus), ENGINE_BLOCK)]
+
+
+def engine_path(ht, edbs, corpus) -> dict:
+    """Phase 3b: every engine route through scan_batch on the card, over
+    256 MiB as one block and as 16,384 blocks: one warm scan, then
+    TIMED_SCANS timed ones (the corpus upload inside the timed loop);
+    each equals the warm scan."""
+    out = {}
+    for route, (db, _host) in edbs.items():
+        for shape in ("one_block", "blocks_16k"):
+            blocks = engine_blocks(corpus, shape)
+            t0 = time.perf_counter()
+            warm = ht.scan_batch(db, blocks, device=DEVICE)
+            warm_s = time.perf_counter() - t0
+            times = []
+            for _ in range(TIMED_SCANS):
+                t0 = time.perf_counter()
+                again = ht.scan_batch(db, blocks, device=DEVICE)
+                times.append(time.perf_counter() - t0)
+                check(again == warm, f"{route} {shape}: repeat differs")
+            out[(route, shape)] = (sum(map(len, warm)), warm_s, times)
+    return out
+
+
+def engine_host_differential(ht, edbs, corpus) -> dict:
+    """The device path equals the port's host path on a 32 MiB prefix,
+    as one block and as 16 KiB blocks."""
+    pre = np.ascontiguousarray(corpus[:ENGINE_HOST_BYTES])
+    out = {}
+    for route, (db, host) in edbs.items():
+        for shape in ("one_block", "blocks_16k"):
+            blocks = engine_blocks(pre, shape)
+            dev = ht.scan_batch(db, blocks, device=DEVICE)
+            ref = ht.scan_batch(host, blocks, device="cpu")
+            n = sum(map(len, ref))
+            check(dev == ref, f"{route} {shape}: 32 MiB device != host "
+                  f"({sum(map(len, dev))} vs {n} matches)")
+            check(n > 0, f"{route} {shape}: no matches on 32 MiB")
+            out[(route, shape)] = n
+    return out
+
+
+def engine_breakdown(torch, db, blocks) -> dict:
+    """Seconds of each stage of one engine scan, the stages of
+    scan_batch done one by one with a synchronize after each; the
+    engine stage holds the kernel, the record fetch and sort, the
+    speculative host chain and the record expansion."""
+    from hyperscan_tpu_torch.ops.teddy import corpus_tensor, flatten_blocks
+    from hyperscan_tpu_torch.runtime import scan as S
+
+    out = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = now - t
+        t = now
+
+    blocks = [bytes(b) for b in blocks]
+    lap("bytes_copy")
+    corpus, starts, lens = flatten_blocks(blocks)
+    lap("concatenate")
+    corpus_t = corpus_tensor(corpus, DEVICE)
+    lap("upload")
+    sinks = [S.RecordSink() for _ in blocks]
+    S._device_engine_scan(db, blocks, corpus, corpus_t, starts, lens,
+                          1 << 14, {}, sinks)
+    lap("engine_scan")
+    recs = [s.materialize(len(b), db.som_eids())
+            for s, b in zip(sinks, blocks)]
+    lap("materialize")
+    for r, b in zip(recs, blocks):
+        S.finalize_reports(db, r, end_offset=len(b))
+    lap("finalize_reports")
+    return out
+
+
+def engine_kernel_times(torch, edbs, corpus, clock_hz) -> dict:
+    """Phase 4b: kernels C and D at the engine path's shapes (256 MiB,
+    both shapes; CUDA events), beside their bounds and their plain
+    versions, and the seconds of the speculative host chains."""
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import nfa_kernel as NK
+
+    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
+    out = {}
+    for route, (db, _host) in edbs.items():
+        eng = db.engines[0]
+        for shape in ("one_block", "blocks_16k"):
+            lens = [len(b) for b in engine_blocks(corpus, shape)]
+            r = {}
+            if route == "acyclic_nfa":
+                corpus_t = torch.from_numpy(corpus).to(DEVICE)
+                plan = NK.device_plan(eng, DEVICE)
+                starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+                bs, be, ba, _ne = NK.block_bounds(
+                    starts, lens, np.ones(len(lens), bool), DEVICE)
+                (_rk, tot, _e), err = compare_nfa(torch, NK, corpus_t, plan,
+                                                  bs, be, ba)
+                cap = max(1, int(tot))
+                r["ms"] = cuda_ms(torch, lambda: NK.nfa_layered(
+                    corpus_t, plan, bs, be, ba, cap), 10)
+                r["plain_ms"] = cuda_ms(torch, lambda: NK.nfa_layered_plain(
+                    corpus_t, plan, bs, be, ba, cap), 1)
+                n = corpus_t.numel()
+                seg = NK.segment_bytes(plan.halo)
+                words = -(-n // seg) * (seg + plan.halo) // 32
+                ops = words * (plan.P + plan.E) + n * plan.K
+                t_ops = ops / INT_OPS_PER_S * 1e3
+                t_bytes = (n + int(tot) * 8 + len(lens) * 21) \
+                    / HBM_BYTES_PER_S * 1e3
+                r.update(records=int(tot), err=err, word_ops=ops,
+                         kernel="nfa_layered")
+            else:
+                spec = route != "bounded_dfa"
+                d = eng.spec_dfa if route == "cyclic_nfa" else eng
+                H, CS = (0, DK.SPEC_CS) if spec else DK.chunk_shape(d)
+                corpus_t, tabs, meta, plan, starts, lens_a = chunk_inputs(
+                    torch, d, corpus, lens, H, CS,
+                    np.full(len(lens), d.start_state))
+                (_rk, tot, fin), err = compare_dfa(torch, DK, corpus_t, tabs,
+                                                   meta, H, None)
+                cap = max(1, int(tot))
+                r["ms"] = cuda_ms(torch, lambda: DK.dfa_scan_chunks(
+                    corpus_t, tabs, meta, H, cap), 10)
+                # the other placement, forced: the tables read from
+                # global memory through the read-only path
+                r["ms_global_tables"] = cuda_ms(
+                    torch, lambda: DK.dfa_scan_chunks(
+                        corpus_t, tabs, meta, H, cap, placement="global"),
+                    10)
+                r["plain_ms"] = cuda_ms(
+                    torch, lambda: DK.dfa_scan_chunks_plain(
+                        corpus_t, tabs, meta, H, cap), 1)
+                m = plan.meta.astype(np.int64)
+                live = int((m[:, 2] - m[:, 1]).sum())
+                body = int((m[:, 2] - np.maximum(m[:, 1], H)).sum())
+                lookups = 2 * live + body  # b2c + trans, accept at t >= H
+                t_ops = lookups / lookups_per_s * 1e3
+                nch = meta.shape[0]
+                t_bytes = (corpus_t.numel() + nch * 20 + int(tot) * 12
+                           + tabs.nbytes + 1024) / HBM_BYTES_PER_S * 1e3
+                r.update(records=int(tot), err=err, chunks=nch,
+                         lookups=lookups, kernel="dfa_scan",
+                         placement=("shared" if tabs.nbytes
+                                    <= DK.SHARED_TABLE_LIMIT else "global"))
+                if spec:
+                    fin_np = fin.cpu().numpy()
+                    t0 = time.perf_counter()
+                    if route == "cyclic_nfa":
+                        resc, _h, _f = DK.nfa_spec_chain(
+                            eng, corpus, starts, lens_a,
+                            np.ones(len(lens), bool), plan, fin_np)
+                    else:
+                        resc, _x, _f = DK.dfa_spec_chain(
+                            eng, corpus, starts, lens_a, plan, fin_np)
+                    r["host_chain_s"] = time.perf_counter() - t0
+                    r["rescanned_chunks"] = len(resc)
+            r["bound_ms"] = max(t_ops, t_bytes)
+            r["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+            out[(route, shape)] = r
+    return out
 
 
 # --- the main path -----------------------------------------------------------
@@ -403,6 +774,10 @@ def main() -> int:
             f" (M={db.lit.masks.shape[0]}, W={db.lit.masks.shape[1]})")
     err_a, err_b = kernel_checks(torch, T, dbs)
 
+    # phase 2b: the engine kernels at 16 MB
+    edbs = engine_dbs(ht)
+    err_c, err_d = engine_kernel_checks(torch, edbs)
+
     # phase 3: the main path, 10k ruleset, 512 MB, both corpus kinds
     db = dbs[10_000]
     T.reset_launches()
@@ -411,8 +786,9 @@ def main() -> int:
         runs[kind] = main_path(ht, T, db, kind)
     launches = dict(T.LAUNCHES)
     log(f"main-path launches: {launches}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in ("teddy_filter_compact", "teddy_hash_confirm"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the main "
+              "path")
     for kind, (corpus, out, warm_s, times) in runs.items():
         dev_n, host_n = prefix_differential(torch, T, db, corpus)
         mean = sum(times) / len(times)
@@ -420,6 +796,24 @@ def main() -> int:
             f"pairs device {dev_n} == host {host_n}; warm scan "
             f"{warm_s:.3f} s; timed scans {[round(t, 4) for t in times]} s "
             f"-> {MAIN_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
+            f"the corpus inside the timed loop) [{card}]")
+
+    # phase 3b: the engine path, one database per route, 256 MiB
+    ecorpus = gen_engine_corpus(ENGINE_BYTES, 5)
+    T.reset_launches()
+    eruns = engine_path(ht, edbs, ecorpus)
+    elaunch = dict(T.LAUNCHES)
+    log(f"engine-path launches: {elaunch}")
+    for k in ("dfa_scan", "nfa_layered"):
+        check(elaunch[k] > 0, f"kernel {k} was not launched on the engine "
+              "path")
+    ediff = engine_host_differential(ht, edbs, ecorpus)
+    for (route, shape), (n_match, warm_s, times) in eruns.items():
+        mean = sum(times) / len(times)
+        log(f"engine path {route} {shape}: {n_match} matches; 32 MiB "
+            f"device == host ({ediff[(route, shape)]} matches); warm scan "
+            f"{warm_s:.3f} s; timed scans {[round(t, 4) for t in times]} s "
+            f"-> {ENGINE_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
             f"the corpus inside the timed loop) [{card}]")
 
     # phase 4: per-kernel times at the main path's shapes
@@ -434,6 +828,22 @@ def main() -> int:
             + json.dumps(r, sort_keys=True))
         err_a = max(err_a, r["a"]["err"], r["a_bytes_tables"]["err"])
         err_b = max(err_b, r["b"]["err"])
+    for route, (edb, _host) in edbs.items():
+        for shape in ("one_block", "blocks_16k"):
+            stages = engine_breakdown(torch, edb,
+                                      engine_blocks(ecorpus, shape))
+            log(f"engine stage seconds {route} {shape} [{card}]: "
+                + json.dumps({k: round(v, 6) for k, v in stages.items()}))
+    ekt = engine_kernel_times(torch, edbs, ecorpus, clock_hz)
+    for (route, shape), r in ekt.items():
+        log(f"engine kernel times {route} {shape} [{card}]: "
+            + json.dumps(r, sort_keys=True))
+        if r["kernel"] == "dfa_scan":
+            err_c = max(err_c, r["err"])
+        else:
+            err_d = max(err_d, r["err"])
+    c = ekt[("bounded_dfa", "one_block")]
+    d = ekt[("acyclic_nfa", "one_block")]
     r = kt["iid"]
     kernels = [
         {"name": "teddy_filter_compact", "route": "cuda",
@@ -450,6 +860,18 @@ def main() -> int:
          "max_abs_err": err_b, "ms": r["b"]["ms"],
          "plain_ms": r["b"]["plain_ms"], "bound_ms": r["b"]["bound_ms"],
          "bound_by": r["b"]["bound_by"], "library_ms": None},
+        {"name": "dfa_scan", "route": "cuda",
+         "source": "hyperscan_tpu_torch/csrc/dfa_scan.cu",
+         "replaces": "hyperscan_tpu/ops/dfa_kernel.py:132",
+         "launches": elaunch["dfa_scan"], "max_abs_err": err_c,
+         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+         "bound_by": c["bound_by"], "library_ms": None},
+        {"name": "nfa_layered", "route": "cuda",
+         "source": "hyperscan_tpu_torch/csrc/nfa_layered.cu",
+         "replaces": "hyperscan_tpu/ops/nfa_kernel.py:476",
+         "launches": elaunch["nfa_layered"], "max_abs_err": err_d,
+         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+         "bound_by": d["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -47,7 +47,10 @@ def _build() -> Optional[ctypes.CDLL]:
     cache.mkdir(parents=True, exist_ok=True)
     so = cache / f"libhstpu_torch_{tag}.so"
     if not so.exists():
-        tmp = so.with_suffix(".so.tmp")
+        # a temporary name of this process's own: concurrent processes
+        # (test workers with a cold cache) compile side by side, and the
+        # first to finish installs the library
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [
             "g++", "-O3", "-march=native", "-shared", "-fPIC",
             "-o", str(tmp), str(src),
@@ -55,8 +58,12 @@ def _build() -> Optional[ctypes.CDLL]:
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         except Exception:
+            tmp.unlink(missing_ok=True)
             return None
-        os.replace(tmp, so)
+        if so.exists():
+            tmp.unlink()
+        else:
+            os.replace(tmp, so)
     try:
         lib = ctypes.CDLL(str(so))
     except OSError:

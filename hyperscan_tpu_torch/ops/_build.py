@@ -30,6 +30,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
+# launches per kernel, counted by each wrapper where it launches its
+# kernel and nowhere else (a run shows it went through the kernels)
+LAUNCHES = {"teddy_filter_compact": 0, "teddy_hash_confirm": 0,
+            "dfa_scan": 0, "nfa_layered": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
 
 def sources() -> Dict[str, pathlib.Path]:
     """Kernel name -> source path, for every source in csrc/."""

@@ -38,6 +38,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+# the launch counters of every kernel of the port (one shared registry)
+from ._build import LAUNCHES, reset_launches  # noqa: F401
+
 CELL = 65536  # bytes per filter cell (one CUDA block); the reference's
 # ROWS_PER_CELL * 128, so per-cell counts compare with it directly
 
@@ -49,17 +52,22 @@ CAP2_FLOOR = 1024
 # cells per step of the plain filter: bounds its memory at any corpus size
 _PLAIN_CHUNK_CELLS = 256
 
-# launches per kernel wrapper (a run shows it went through the kernels)
-LAUNCHES = {"teddy_filter_compact": 0, "teddy_hash_confirm": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def _p2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
+
+
+def flatten_blocks(blocks) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Blocks head to head in one flat uint8 corpus, with no gap: returns
+    (corpus, starts int64 [B], lens int64 [B])."""
+    lens = np.asarray([len(b) for b in blocks], dtype=np.int64)
+    starts = np.zeros(len(blocks), dtype=np.int64)
+    if len(blocks) > 1:
+        np.cumsum(lens[:-1], out=starts[1:])
+    corpus = (np.concatenate([np.frombuffer(b, dtype=np.uint8)
+                              for b in blocks])
+              if int(lens.sum()) else np.zeros(0, dtype=np.uint8))
+    return corpus, starts, lens
 
 
 def corpus_tensor(corpus: np.ndarray, device) -> torch.Tensor:
@@ -69,6 +77,16 @@ def corpus_tensor(corpus: np.ndarray, device) -> torch.Tensor:
     if not corpus.flags.writeable:
         corpus = corpus.copy()
     return torch.from_numpy(corpus).to(device)
+
+
+def upload_blocks(blocks, device):
+    """`flatten_blocks` plus the upload: (corpus, corpus tensor on
+    `device`, starts, lens). A CUDA device must exist."""
+    from ..runtime.scan import resolve_device
+
+    corpus, starts, lens = flatten_blocks(blocks)
+    return corpus, corpus_tensor(corpus, resolve_device(device)), starts, \
+        lens
 
 
 def _class_split(masks: np.ndarray):
@@ -469,6 +487,17 @@ def _caps_for(lit, capacity: int) -> Tuple[int, int, int]:
     return (max(CAP1_FLOOR, _p2(5 * t1 // 4)),
             min(CELL, max(CAPC_FLOOR, _p2(2 * h1))),
             max(CAP2_FLOOR, _p2(2 * t2)))
+
+
+def get_capacity_hint(obj, key: str) -> int:
+    """Learned record capacity of one engine route (0 = none yet), kept
+    on the engine under this package's own attribute name (reference:
+    get_capacity_hint, hyperscan_tpu/ops/teddy.py:856)."""
+    return getattr(obj, "_torch_cap_hints", {}).get(key, 0)
+
+
+def set_capacity_hint(obj, key: str, capacity: int) -> None:
+    obj.__dict__.setdefault("_torch_cap_hints", {})[key] = int(capacity)
 
 
 def _observe_caps(lit, t1: int, h1: int, t2: int) -> None:

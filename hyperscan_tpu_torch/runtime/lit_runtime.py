@@ -470,11 +470,14 @@ def scan_literal_path(
     filter_from: np.ndarray = None,
     prefilter_out: Dict = None,
     device="cuda",
+    corpus_t=None,
 ) -> Set[Record]:
     """Full literal pipeline for one flat corpus of concatenated blocks.
 
     Corpora above the database's `host_scan_limit` are filtered and
-    hash-confirmed on the torch `device`.
+    hash-confirmed on the torch `device`, over `corpus_t` when the caller
+    has uploaded the corpus already (it is then shared with the engine
+    scans).
 
     `filter_from[b]` (streaming) marks the first NEW flat offset of block
     b's extent: candidates whose windows cannot reach past it were fully
@@ -534,8 +537,9 @@ def scan_literal_path(
     # device at the next power of two (ops.teddy.confirm_finish).
     from ..ops.teddy import confirm_scan, corpus_tensor
 
-    fid_a, p_a = confirm_scan(corpus_tensor(corpus, device), lit,
-                              corpus.shape[0], capacity)
+    if corpus_t is None:
+        corpus_t = corpus_tensor(corpus, device)
+    fid_a, p_a = confirm_scan(corpus_t, lit, corpus.shape[0], capacity)
     fid_a, p_a = verify_pairs(lit, corpus, block_starts, fid_a, p_a)
     return finish_confirmed(
         db, corpus, block_starts, block_ends, fid_a, p_a,

@@ -233,66 +233,171 @@ def scan_blocks_raw(
     """Scan a batch of independent blocks; returns per-block RecordBatch
     of internal (expr_index, to, from) records (pre report-processing),
     deduped and sorted. Capacity overflow retries happen inside the
-    device kernel wrappers (ops.teddy.confirm_finish).
+    device kernel wrappers (ops.teddy.confirm_finish, the engine scans of
+    ops.dfa_kernel and ops.nfa_kernel).
 
-    The literal pipeline runs on the torch `device` above the database's
-    `host_scan_limit`. General engines run on the host below that limit;
-    above it they need the device DFA/NFA kernels, which are not ported
-    yet (ROADMAP queue 1, item 5), so such scans raise. `mesh` (multi-GPU
-    sharding, ROADMAP queue 1, item 8) raises the same way."""
+    Above the database's `host_scan_limit` the blocks are concatenated
+    into one flat corpus, uploaded once to the torch `device`, and both
+    the literal pipeline and the general engines scan that tensor; below
+    it everything runs on the host. `mesh` (multi-GPU sharding, ROADMAP
+    queue 1, item 8) is not ported yet and raises."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh= sharding is not ported yet (ROADMAP queue 1, item 8: "
             "multi-GPU on torch.distributed)")
     B = len(blocks)
     per_block: List[RecordSink] = [RecordSink() for _ in range(B)]
+    from ..ops.teddy import corpus_tensor, flatten_blocks
+    from .smallwrite import HOST_SCAN_LIMIT
+
+    corpus, starts, lens = flatten_blocks(blocks)
+    on_device = corpus.shape[0] > getattr(db, "host_scan_limit",
+                                          HOST_SCAN_LIMIT)
+    corpus_t = corpus_tensor(corpus, device) if on_device else None
 
     # literal path: Teddy filter over the concatenated corpus, then
     # confirm + window validation (reference: Rose floating literal
     # matcher path, src/rose/block.c roseBlockFloating)
+    prefilter_hits: dict = {}
     if db.lit is not None:
         from .lit_runtime import scan_literal_path
 
-        lens = np.asarray([len(b) for b in blocks], dtype=np.int64)
-        starts = np.zeros(B, dtype=np.int64)
-        if B > 1:
-            np.cumsum(lens[:-1], out=starts[1:])
-        ends = starts + lens
-        corpus = (
-            np.concatenate([np.frombuffer(b, dtype=np.uint8) for b in blocks])
-            if int(lens.sum())
-            else np.zeros(0, dtype=np.uint8)
-        )
         rng = []
         for (bi, eidx, to, frm) in scan_literal_path(
-            db, corpus, starts, ends,
+            db, corpus, starts, starts + lens,
             capacity=max(capacity, 1 << 14), ranges_out=rng,
-            device=device,
+            prefilter_out=prefilter_hits, device=device, corpus_t=corpus_t,
         ):
             per_block[bi].add(eidx, to, frm)
         for (bi, eidx, lo, hi) in rng:
             per_block[bi].add_range(eidx, lo, hi)
 
-    if not db.engines:
-        return [
-            per_block[bi].materialize(len(blocks[bi]), db.som_eids())
-            for bi in range(B)
-        ]
+    if db.engines and not on_device:
+        # small-write path (reference: runSmallWriteEngine): host numpy
+        _host_engine_scan(db.engines, blocks, per_block)
+    elif db.engines:
+        _device_engine_scan(db, blocks, corpus, corpus_t, starts, lens,
+                            capacity, prefilter_hits, per_block)
+    return [per_block[bi].materialize(len(blocks[bi]), db.som_eids())
+            for bi in range(B)]
 
-    total_bytes = sum(len(b) for b in blocks)
+
+def _device_engine_scan(db, blocks, corpus, corpus_t, starts, lens,
+                        capacity, prefilter_hits, per_block) -> None:
+    """The engine half of a device block scan (reference:
+    hyperscan_tpu/runtime/scan.py:297-434): bounded DFAs take the
+    chunk-halo scan, unbounded DFAs the speculative one, acyclic bit-NFAs
+    the layered sweep and cyclic ones with a lazy-DFA core the
+    speculative NFA scan, all over the uploaded corpus `corpus_t`; SOM,
+    LBR and other NFA engines scan on the host. An engine whose every
+    expression is literal-prefilter gated scans only the blocks where
+    one of its mandatory factors hit."""
+    from ..database import MAX_HALO_DEPTH, LbrEngine, NfaEngine, SomEngine
+    from ..ops import dfa_kernel as DK
+    from ..ops.nfa_kernel import nfa_device_eligible, nfa_scan_corpus
     from .smallwrite import HOST_SCAN_LIMIT
 
-    if total_bytes > getattr(db, "host_scan_limit", HOST_SCAN_LIMIT):
-        raise NotImplementedError(
-            "general-engine scans above host_scan_limit need the device "
-            "DFA/NFA kernels, which are not ported yet (ROADMAP queue 1, "
-            "item 5: general engines in block mode)")
-    # small-write path (reference: runSmallWriteEngine): host numpy
-    lengths = _host_engine_scan(db.engines, blocks, per_block)
-    return [
-        per_block[bi].materialize(int(lengths[bi]), db.som_eids())
-        for bi in range(B)
-    ]
+    B = len(blocks)
+    limit = getattr(db, "host_scan_limit", HOST_SCAN_LIMIT)
+    pre_eids = (_lit_prefilter_eids(db.lit) if db.lit is not None
+                else frozenset())
+    host_engines = []  # (engine, sel)
+
+    def _engine_sel(engine) -> np.ndarray:
+        """Block indices this engine must scan: all, unless EVERY
+        expression it reports is literal-prefilter gated ("pre" refs) —
+        then only blocks where some mandatory factor hit. Block mode
+        only (streaming keeps engines hot across writes); false factor
+        hits over-approximate, never under (reference: the Rose literal
+        cut feeding arbitrary engines, ng_violet.cpp:3053)."""
+        es = engine.eids() if hasattr(engine, "eids") else None
+        if (not pre_eids or not es or engine.start_reports
+                or not es <= pre_eids):
+            return np.arange(B, dtype=np.int64)
+        act = sorted(set().union(
+            *(prefilter_hits.get(e, set()) for e in es)))
+        return np.asarray(act, dtype=np.int64)
+
+    def _eod(engine, set_id_of, finals_or_bits, len_sub, pb_sub) -> None:
+        for bi in range(len(pb_sub)):
+            sid = set_id_of(finals_or_bits[bi])
+            if sid:
+                for (eid, adj) in engine.expand_set(sid):
+                    pb_sub[bi].add(eid, int(len_sub[bi]) + adj)
+
+    for engine in db.engines:
+        if isinstance(engine, (SomEngine, LbrEngine)):
+            host_engines.append((engine, np.arange(B, dtype=np.int64)))
+            continue
+        sel = _engine_sel(engine)
+        if not len(sel):
+            continue
+        pb_sub = [per_block[j] for j in sel.tolist()]
+        st_sub, len_sub = starts[sel], lens[sel]
+        anch = np.ones(len(sel), dtype=bool)
+        if isinstance(engine, NfaEngine):
+            if nfa_device_eligible(engine):
+                # acyclic bit-NFA: layered position-parallel device scan
+                (bi_a, pos_a, val_a), eod_bits = nfa_scan_corpus(
+                    engine, corpus_t, st_sub, len_sub, anch, capacity)
+                _expand_device_records(engine, bi_a, pos_a, val_a, pb_sub)
+                _eod(engine, int, eod_bits, len_sub, pb_sub)
+            elif engine.spec_dfa is not None \
+                    and int(len_sub.sum()) > limit:
+                # cyclic bit-NFA: speculative device scan over the
+                # lazy-DFA core, host rescan of sink/mismatch chunks
+                (bi_a, pos_a, aids), host_recs, finals = \
+                    DK.nfa_scan_corpus_speculative(
+                        engine, corpus, corpus_t, st_sub, len_sub, anch,
+                        capacity)
+                _expand_device_records(
+                    engine.spec_dfa, bi_a, pos_a, aids, pb_sub)
+                for (bi, pp, hv) in host_recs:
+                    _expand_device_records(
+                        engine, np.full(len(pp), bi, np.int64), pp, hv,
+                        pb_sub)
+                _eod(engine, engine.eod_set, finals, len_sub, pb_sub)
+            else:
+                host_engines.append((engine, sel))
+                continue
+        else:
+            if engine.max_depth is None \
+                    or engine.max_depth > MAX_HALO_DEPTH:
+                # unbounded-width engine: speculative chunk-parallel
+                # device scan with host entry-state fixup (exact; the
+                # worst case decays to the host path it replaces)
+                (bi_a, pos_a, sid_a), finals = \
+                    DK.dfa_scan_corpus_speculative(
+                        engine, corpus, corpus_t, st_sub, len_sub, anch,
+                        capacity)
+            else:
+                # bounded-width engine: exact chunk-halo device scan
+                (bi_a, pos_a, sid_a), finals = DK.dfa_scan_corpus(
+                    engine, corpus_t, st_sub, len_sub, anch, capacity)
+            _expand_device_records(engine, bi_a, pos_a, sid_a, pb_sub)
+            _eod(engine, engine.eod_set, finals, len_sub, pb_sub)
+        _add_start_reports(engine, pb_sub, len_sub)
+
+    # SOM, LBR and the NFAs without a device route scan on the host
+    full = [e for (e, s) in host_engines if len(s) == B]
+    if full:
+        _host_engine_scan(full, blocks, per_block)
+    for (e, s) in host_engines:
+        if len(s) < B and len(s):
+            sub = s.tolist()
+            _host_engine_scan([e], [blocks[j] for j in sub],
+                              [per_block[j] for j in sub])
+
+
+def _lit_prefilter_eids(lit) -> frozenset:
+    """Expression indices whose every general-engine branch registered
+    mandatory "pre" factors (cached on the lit tables under this
+    package's own attribute name)."""
+    if "_torch_pre_eids" not in lit.__dict__:
+        lit._torch_pre_eids = frozenset(
+            e for refs in lit.factor_refs for (e, _a, _b, k) in refs
+            if k == "pre")
+    return lit._torch_pre_eids
 
 
 def _expand_device_records(engine, bi_a, pos_a, val_a, per_block) -> None:

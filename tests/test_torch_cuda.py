@@ -90,3 +90,128 @@ def test_scan_on_card_equals_cpu_and_counts_launches(card):
     assert T.LAUNCHES["teddy_hash_confirm"] >= 1
     assert got == ht.scan(db, data, device="cpu")
     assert len(got) >= 10
+
+
+# --- the engine kernels: C (dfa_scan) and D (nfa_layered) -------------------
+
+from hyperscan_tpu_torch.ops import dfa_kernel as DK  # noqa: E402
+from hyperscan_tpu_torch.ops import nfa_kernel as NK  # noqa: E402
+from hyperscan_tpu_torch.ops.teddy import flatten_blocks  # noqa: E402
+
+ENGINE_ALPHA = np.frombuffer(b"aabxyz0123456789-cdefGET /!\x00\xff", np.uint8)
+
+
+def _engine_blocks(seed: int, sizes):
+    rng = np.random.default_rng(seed)
+    plants = [b"abcdef", b"555-1212", b"GET /index ", b"a" + b"q" * 60 + b"b",
+              b"x12345678y", b"a" + b"q" * 18 + b"b"]
+    out = []
+    for n in sizes:
+        b = rng.choice(ENGINE_ALPHA, size=n).astype(np.uint8)
+        for _ in range(n // 300):
+            p = np.frombuffer(plants[int(rng.integers(len(plants)))],
+                              np.uint8)
+            off = int(rng.integers(0, max(1, n - len(p))))
+            b[off:off + len(p)] = p[:n - off]
+        out.append(b.tobytes())
+    return out
+
+
+def _sorted_rows(recs, total, width):
+    r = recs[:int(total)].long()
+    key = r[:, 0] * 512 + r[:, 1] if width == 3 else r[:, 0]
+    return r[torch.argsort(key)].cpu()
+
+
+def _dfa_engine(pats, **grey):
+    db = compile_patterns(pats, grey=Grey(allow_teddy=False, **grey))
+    return db.engines[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bounded", "halo0_carried",
+                                  "bounded_global"])
+def test_dfa_scan_kernel_equals_plain(card, case):
+    if case == "halo0_carried":
+        eng = _dfa_engine([r"[0-9]", r"[a-c]"])
+    else:
+        eng = _dfa_engine([r"ab[cd]{2,6}ef", r"[0-9]{3}-[0-9]{4}",
+                           r"GET /[a-z]{1,12} "])
+    H, CS = DK.chunk_shape(eng) if eng.max_depth else (0, DK.SPEC_CS)
+    blocks = _engine_blocks(4, (300_001, 0, 77, 5000, 1 << 16))
+    corpus, starts, lens = flatten_blocks(blocks)
+    rng = np.random.default_rng(5)
+    entry = (rng.integers(0, eng.num_states, size=len(blocks))
+             if case == "halo0_carried" else np.full(len(blocks),
+                                                     eng.start_state))
+    if case == "halo0_carried":
+        assert H == 0
+    plan = DK.plan_chunks(starts, lens, H, CS, entry, eng.float_state)
+    placement = "global" if case == "bounded_global" else "shared"
+    out = {}
+    for which, dev in (("kernel", card), ("plain", card)):
+        ct = torch.from_numpy(corpus).to(dev)
+        meta = torch.from_numpy(plan.meta).to(dev)
+        tabs = DK.device_tables(eng, dev)
+        for cap in (1 << 20, 3):  # roomy, and overflowing (total exact)
+            if which == "kernel":
+                recs, tot, fin = DK.dfa_scan_chunks(ct, tabs, meta, H, cap,
+                                                    placement=placement)
+            else:
+                recs, tot, fin = DK.dfa_scan_chunks_plain(ct, tabs, meta, H,
+                                                          cap)
+            out[(which, cap)] = (recs, int(tot), fin.cpu())
+    k_recs, k_tot, k_fin = out[("kernel", 1 << 20)]
+    p_recs, p_tot, p_fin = out[("plain", 1 << 20)]
+    assert k_tot == p_tot == out[("kernel", 3)][1] > 10
+    assert torch.equal(k_fin, p_fin)
+    assert torch.equal(_sorted_rows(k_recs, k_tot, 3),
+                       _sorted_rows(p_recs, p_tot, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pat", [r".*x.{8}(y|z)$", r".*a.{60}b"])
+def test_nfa_layered_kernel_equals_plain(card, pat):
+    db = compile_patterns([pat], grey=Grey(max_dfa_states=8,
+                                           allow_teddy=False))
+    eng = db.engines[0]
+    assert NK.nfa_device_eligible(eng)
+    blocks = _engine_blocks(6, (300_001, 0, 77, 5000, 1 << 16, 1))
+    for k in (0, 2, 4):  # EOD accepts
+        blocks[k] = blocks[k][:-10] + b"x\xff2345678z"
+    corpus, starts, lens = flatten_blocks(blocks)
+    anch = np.asarray([1, 0, 1, 0, 1, 1], bool)
+    ct = torch.from_numpy(corpus).to(card)
+    plan = NK.device_plan(eng, card)
+    bs, be, ba, _ne = NK.block_bounds(starts, lens, anch, card)
+    out = {}
+    for which, fn in (("kernel", NK.nfa_layered),
+                      ("plain", NK.nfa_layered_plain)):
+        for cap in (1 << 20, 3):
+            recs, tot, eod = fn(ct, plan, bs, be, ba, cap)
+            out[(which, cap)] = (recs, int(tot), eod.cpu())
+    k_recs, k_tot, k_eod = out[("kernel", 1 << 20)]
+    p_recs, p_tot, p_eod = out[("plain", 1 << 20)]
+    assert k_tot == p_tot == out[("kernel", 3)][1]
+    assert torch.equal(k_eod, p_eod)
+    assert torch.equal(_sorted_rows(k_recs, k_tot, 2),
+                       _sorted_rows(p_recs, p_tot, 2))
+    if "$" in pat:
+        assert int((p_eod != 0).sum()) == 3
+    else:
+        assert eng.num_positions > 48 and p_tot > 10
+
+
+@pytest.mark.cuda
+def test_engine_scan_on_card_equals_cpu_and_counts_launches(card):
+    pats = [r"ab[cd]{2,6}ef", r"\d+[a-z]{3,}\d+", r".*a.{18}b",
+            r"(ax|by|cz|dw)+[!]"]
+    db = compile_patterns(pats, grey=Grey(host_scan_limit=0,
+                                          max_dfa_states=64))
+    blocks = _engine_blocks(7, (200_001, 0, 5000, 1 << 16))
+    T.reset_launches()
+    got = ht.scan_batch(db, blocks)  # the card, by default
+    assert T.LAUNCHES["dfa_scan"] >= 1
+    assert T.LAUNCHES["nfa_layered"] >= 1
+    assert got == ht.scan_batch(db, blocks, device="cpu")
+    assert sum(map(len, got)) >= 10

@@ -134,10 +134,14 @@ def test_cuda_device_without_card_raises():
 
 
 def test_engine_scan_above_host_limit_raises():
-    port = port_compile([r"[0-9]{3}-[0-9]{4}"],
-                        grey=PortGrey(host_scan_limit=0))
+    """Above host_scan_limit an engine database scans on the device path
+    and equals the reference; only mesh= sharding still raises."""
+    pats = [r"[0-9]{3}-[0-9]{4}"]
+    port = port_compile(pats, grey=PortGrey(host_scan_limit=0))
+    ref = ref_compile(pats, [0], [0], grey=RefGrey(host_scan_limit=0))
     assert port.engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.scan(port, b"555-1212", device="cpu")
+    data = b"call 555-1212 or 555-12345 now"
+    assert ht.scan(port, data, device="cpu") == hs.scan(ref, data)
+    assert len(hs.scan(ref, data)) == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ht.scan_batch(port, [b"555-1212"], mesh=object(), device="cpu")
