@@ -17,21 +17,35 @@ Phases, in order; any failure exits non-zero:
    (dfa_scan: a bounded DFA with shared and with global tables, H = 0
    with carried entry states, the lazy-DFA core of a cyclic NFA) and
    kernel D (nfa_layered: EOD accepts, P > 48) against theirs over a
-   16 MB batch of blocks. Tolerance: exact (every value is an integer).
-3. The literal path at full size: `scan_batch` with the 10k ruleset over
-   a 512 MB corpus, structured and iid. The planted matches must be
-   found, the verified pairs of the first 64 MB must equal the port's
-   host path (teddy_filter_host + confirm_candidates), and kernels A and
-   B must have been launched during these scans.
-   The engine path at full size: each route's database through
-   `scan_batch` over 256 MiB, as one block and as 16,384 blocks of
-   16 KiB; every repeat equals the first scan, the match lists over a
-   32 MiB prefix equal the port's host path, and kernels C and D must
-   have been launched during these scans.
+   16 MB batch of blocks. Then (2c) the literal families' kernels on the
+   10k ruleset at 16 MB, structured and iid, and on a flood database
+   (`aaaa` over a run of `a`): the gate (row flags, K), the survivor-row
+   rescan (positions, counts), kconfirm (the four counters and each
+   cell's matches) and the plane mode and its extraction (the plane,
+   (total, hit chunks), positions). Tolerance: exact (every value is an
+   integer).
+3. The literal path at full size, under the port's default family
+   choice: `scan_batch` with the 10k ruleset over a 512 MB corpus,
+   structured and iid, and the flood database over 256 KiB. The planted
+   matches must be found, the verified pairs of the first 64 MB must
+   equal the port's host path (teddy_filter_host + confirm_candidates),
+   the structured scans must have run the gated family and the iid timed
+   scans kconfirm, the flood must demote compact -> dense with n - 3
+   matches, and every literal kernel must have been launched.
+   (3c) Each family forced in turn on both 512 MB corpora: the 64 MB
+   prefix equals the host path, the match lists of all four families
+   are equal, GB/s and a stage breakdown per family; the flood forced
+   compact demotes to dense. The engine path at full size (3b): each
+   route's database through `scan_batch` over 256 MiB, as one block and
+   as 16,384 blocks of 16 KiB; every repeat equals the first scan, the
+   match lists over a 32 MiB prefix equal the port's host path, and
+   kernels C and D must have been launched during these scans.
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
    and per-kernel times at the main paths' shapes, beside their bounds
-   and their plain versions' times; the seconds of the speculative
-   scans' host chains.
+   and their plain versions' times (and torch.nonzero's beside the
+   extraction); the seconds of the speculative scans' host chains. Every
+   literal kernel is held against its plain version at these shapes too
+   (exact), and its `max_abs_err` covers both sizes.
 5. One JSON line listing every kernel, the card's name and power limit
    as nvidia-smi reports them, and the final status line.
 
@@ -50,6 +64,7 @@ import numpy as np
 MB = 1 << 20
 MAIN_BYTES = 512 * MB
 CHECK_BYTES = 16 * MB
+CHECK_CAPC = 128  # capc of the 16 MB kernel checks (the learned floor)
 PREFIX_BYTES = 64 * MB
 TIMED_SCANS = 3
 DEVICE = "cuda"
@@ -203,11 +218,11 @@ def kernel_checks(torch, T, dbs):
             variants = ([True] if ft.cmasks is not None else []) + [False]
             for use_classes in variants:
                 (pos_c, cnt), e = compare_filter(
-                    torch, T, corpus_t, ft, T.CAPC_FLOOR, use_classes)
+                    torch, T, corpus_t, ft, CHECK_CAPC, use_classes)
                 err_a = max(err_a, e)
             total = int(cnt.sum())
             cap1 = T._p2(max(total, 1))
-            _meta, pos = T.compact_combine(pos_c, cnt, T.CAPC_FLOOR, cap1)
+            _meta, pos = T.compact_combine(pos_c, cnt, CHECK_CAPC, cap1)
             # every probe emits at most one pair per candidate
             probes = sum(g[4] for g in ct.groups)
             (_p, tot), e = compare_confirm(torch, T, corpus_t, pos, ct,
@@ -580,16 +595,316 @@ def engine_kernel_times(torch, edbs, corpus, clock_hz) -> dict:
     return out
 
 
+# --- the literal families: kernels 5, 6, 4 and 3 ---------------------------
+
+FLOOD_BYTES = 4 * MB  # the flood database's corpus (every byte a candidate)
+FLOOD_MAIN_BYTES = MB // 4  # its scan on the main path (a match a byte)
+FORCED_TIMED = 2
+
+
+def flood_db(ht):
+    db = ht.compile_multi(["aaaa"], ids=[3])
+    check(db.lit is not None and not db.engines, "flood db not literal")
+    return db
+
+
+def cell_err(torch, pos_k, cnt_k, pos_p, cnt_p, cap) -> int:
+    """Max abs difference of per-cell counts and of the valid slots."""
+    valid = (torch.arange(cap, device=cnt_p.device)[None, :]
+             < cnt_p.clamp(max=cap)[:, None])
+    err = int((cnt_k - cnt_p).abs().max())
+    if bool(valid.any()):
+        err = max(err, int((pos_k[valid] - pos_p[valid]).abs().max()))
+    return err
+
+
+def family_kernel_checks(torch, T, db, fdb) -> dict:
+    """Phase 2c: kernels 5 (gate), 6 (survivor rescan), 4 (kconfirm) and
+    3 (plane mode + extraction) against their plain versions, exact: the
+    10k ruleset at 16 MB, structured and iid, and the flood database."""
+    from hyperscan_tpu_torch.ops import extract as X
+    from hyperscan_tpu_torch.ops import teddy_gate as G
+    from hyperscan_tpu_torch.ops import teddy_kconfirm as K
+
+    errs = dict.fromkeys(("gate", "rescan", "kconfirm", "plane",
+                          "extract"), 0)
+    cases = [("10k " + kind, db, gen_corpus(CHECK_BYTES, 2, kind))
+             for kind in ("structured", "iid")]
+    cases.append(("flood", fdb, np.full(FLOOD_BYTES, ord("a"), np.uint8)))
+    for name, d, corpus in cases:
+        lit = d.lit
+        ft, _ct = T.device_tables(lit, DEVICE)
+        classes = ft.cmasks is not None
+        corpus_t = torch.from_numpy(corpus).to(DEVICE)
+        msg = []
+        gt = G.device_gate_table(lit, DEVICE)
+        if gt is not None:
+            fk, kk = G.gate_rows(corpus_t, gt)
+            fp, kp = G.gate_rows_plain(corpus_t, gt)
+            e = max(int((fk.int() - fp.int()).abs().max()),
+                    int((kk - kp).abs().max()))
+            errs["gate"] = max(errs["gate"], e)
+            check(e == 0, f"kernel 5 {name} != plain version")
+            pk, ck = G.rescan_rows(corpus_t, ft, fk, CHECK_CAPC)
+            pp, cp = T.filter_compact_plain(corpus_t, ft, CHECK_CAPC,
+                                            use_classes=True, row_flags=fp)
+            e = cell_err(torch, pk, ck, pp, cp, CHECK_CAPC)
+            errs["rescan"] = max(errs["rescan"], e)
+            check(e == 0, f"kernel 6 {name} != plain version")
+            msg.append(f"gate K {int(kk.sum())} rows, rescan candidates "
+                       f"{int(ck.sum())}")
+        kt = K.confirm_planes(lit, DEVICE)
+        check(kt is not None, f"{name}: no kconfirm tables")
+        ok_ = K.filter_kconfirm(corpus_t, ft, kt, use_classes=classes)
+        op_ = K.filter_kconfirm_plain(corpus_t, ft, kt, use_classes=classes)
+        e = max(int((ok_[0] - op_[0]).abs().max()),
+                cell_err(torch, ok_[2], ok_[1], op_[2], op_[1], K.CAPC2),
+                cell_err(torch, ok_[3], ok_[1], op_[3], op_[1], K.CAPC2))
+        counters = [int(op_[0].sum()), int(op_[0].max()), int(op_[1].sum()),
+                    int(op_[1].max())]
+        errs["kconfirm"] = max(errs["kconfirm"], e)
+        check(e == 0, f"kernel 4 {name} != plain version")
+        msg.append(f"kconfirm (candidates, max cell, matches, max cell "
+                   f"matches) {counters}")
+        plane_k = T.filter_plane(corpus_t, ft, use_classes=classes)
+        plane_p = T.filter_plane_plain(corpus_t, ft, use_classes=classes)
+        e = int((plane_k != plane_p).sum())
+        errs["plane"] = max(errs["plane"], e)
+        check(e == 0, f"kernel 3 plane mode {name} != plain version")
+        total = int(plane_p.sum())
+        for cap1 in (T._p2(max(total, 1)), 1000):
+            mk, qk = X.plane_extract(plane_k, len(corpus), cap1)
+            mp, qp = X.plane_extract_plain(plane_k, len(corpus), cap1)
+            e = max(int((mk - mp).abs().max()), int((qk - qp).abs().max()))
+            errs["extract"] = max(errs["extract"], e)
+            check(e == 0, f"kernel 3 extraction {name} != plain version")
+        msg.append(f"plane candidates {total}, hit chunks {int(mk[1])}")
+        log(f"kernel check {name}: " + "; ".join(msg) + ": exact")
+    return errs
+
+
+def ran_since(lit, before: dict) -> list:
+    """The families a database dispatched since the `before` copy of its
+    dispatch counts (`dict(F.family_state(lit).dispatches)`)."""
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
+    now = F.family_state(lit).dispatches
+    return [f for f in F.FAMILIES if now[f] > before[f]]
+
+
+def flood_main_path(ht, T, fdb) -> dict:
+    """The flood database through scan_batch on the main path: its first
+    dispatch is compact, a cell passes CAPC_MAX, and the scan finishes on
+    the dense family with every match (n - 3)."""
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
+    corpus = np.full(FLOOD_MAIN_BYTES, ord("a"), np.uint8)
+    before = dict(F.family_state(fdb.lit).dispatches)
+    t0 = time.perf_counter()
+    out = ht.scan_batch(fdb, [corpus], device=DEVICE)[0]
+    took = time.perf_counter() - t0
+    fams = ran_since(fdb.lit, before)
+    check(len(out) == len(corpus) - 3, f"flood: {len(out)} matches")
+    check(fams == ["compact", "dense"] and F.family_state(fdb.lit).dense,
+          f"flood did not demote compact -> dense ({fams})")
+    return {"matches": len(out), "families": fams, "s": took}
+
+
+def host_prefix(lit, corpus) -> set:
+    """Verified pairs of the port's host filter + confirm over the first
+    64 MB."""
+    from hyperscan_tpu_torch.runtime.lit_runtime import (
+        confirm_candidates, verify_pairs)
+    from hyperscan_tpu_torch.runtime.smallwrite import teddy_filter_host
+
+    z = np.zeros(1, np.int64)
+    pre = np.ascontiguousarray(corpus[:PREFIX_BYTES])
+    pos, words = teddy_filter_host(pre, lit.masks)
+    fh, ph = confirm_candidates(lit, pre, z, pos, words)
+    fh, ph = verify_pairs(lit, pre, z, fh, ph)
+    return set(zip(fh.tolist(), ph.tolist()))
+
+
+def forced_families(torch, ht, T, db, runs, hosts) -> dict:
+    """Phase 3c: each family forced in turn on both 512 MiB corpora: the
+    64 MB prefix equals the host path, the match lists of the four
+    families are equal, end-to-end GB/s (FORCED_TIMED timed scans after a
+    warm one) and a stage breakdown; then the flood database, forced
+    compact, demotes to dense and finds every match."""
+    from hyperscan_tpu_torch.runtime.lit_runtime import verify_pairs
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
+    lit = db.lit
+    out = {}
+    for kind, (corpus, ref_out, _w, _t) in runs.items():
+        for fam in F.FAMILIES:
+            F.force_family(lit, fam)
+            before = dict(F.family_state(lit).dispatches)
+            warm = ht.scan_batch(db, [corpus], device=DEVICE)[0]
+            ran = ran_since(lit, before)
+            check(ran[-1] == fam, f"{kind}: forced {fam} ran {ran}")
+            check(warm == ref_out, f"{kind}: forced {fam} match list "
+                  f"differs ({len(warm)} vs {len(ref_out)})")
+            times = []
+            for _ in range(FORCED_TIMED):
+                t0 = time.perf_counter()
+                again = ht.scan_batch(db, [corpus], device=DEVICE)[0]
+                times.append(time.perf_counter() - t0)
+                check(again == warm, f"{kind} {fam}: repeat differs")
+            dev_n, host_n = prefix_differential(torch, T, db, corpus,
+                                                hosts[kind])
+            stages = breakdown(torch, T, db, corpus)
+            gbs = MAIN_BYTES / (sum(times) / len(times)) / 1e9
+            out[(kind, fam)] = {"gb_s": gbs, "times": times,
+                                "prefix_pairs": dev_n, "stages": stages}
+            log(f"forced {fam} {kind}: {len(warm)} matches == default "
+                f"family's; 64 MB prefix device {dev_n} == host {host_n}; "
+                f"timed {[round(t, 4) for t in times]} s -> {gbs:.3f} GB/s; "
+                f"stages " + json.dumps({k: round(v, 6)
+                                         for k, v in stages.items()}))
+    F.force_family(lit, None)
+    flit = ht.compile_multi(["aaaa"], ids=[3]).lit
+    F.force_family(flit, "compact")
+    corpus = np.full(FLOOD_BYTES, ord("a"), np.uint8)
+    f, p = F.confirm_scan(T.corpus_tensor(corpus, DEVICE), flit, len(corpus))
+    f, p = verify_pairs(flit, corpus, np.zeros(1, np.int64), f, p)
+    fams = ran_since(flit, dict.fromkeys(F.FAMILIES, 0))
+    check(len(p) == len(corpus) - 3 and fams == ["compact", "dense"],
+          f"forced compact flood: {len(p)} matches, families {fams}")
+    log(f"forced compact flood {FLOOD_BYTES} B: demoted to dense, "
+        f"{len(p)} = n - 3 verified matches")
+    return out
+
+
+def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
+    """Phase 4c: kernels 5, 6, 4 and 3 at 512 MiB, the main path's shapes
+    (the rescan at the learned gated capc): each held against its plain
+    version on the same inputs, exact (the errors under "err"), then
+    CUDA-event ms, bound, plain-version ms and, for the extraction,
+    torch.nonzero's ms."""
+    from hyperscan_tpu_torch.ops import extract as X
+    from hyperscan_tpu_torch.ops import teddy_families as F
+    from hyperscan_tpu_torch.ops import teddy_gate as G
+    from hyperscan_tpu_torch.ops import teddy_kconfirm as K
+
+    lit = db.lit
+    corpus_t = T.corpus_tensor(corpus, DEVICE)
+    ft, _ct = T.device_tables(lit, DEVICE)
+    gt = G.device_gate_table(lit, DEVICE)
+    kt = K.confirm_planes(lit, DEVICE)
+    n = corpus_t.numel()
+    n_cells = T._n_cells(n)
+    M, W = ft.M, ft.W
+    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
+
+    def bound(n_bytes, lookups, int_ops=0):
+        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_o = (lookups / lookups_per_s + int_ops / INT_OPS_PER_S) * 1e3
+        return {"bound_ms": max(t_b, t_o),
+                "bound_by": "operations" if t_o > t_b else "bytes"}
+
+    out, err = {}, {}
+    flags, kc = G.gate_rows(corpus_t, gt)
+    fp, kp = G.gate_rows_plain(corpus_t, gt)
+    err["gate"] = max(int((flags.int() - fp.int()).abs().max()),
+                      int((kc - kp).abs().max()))
+    k_rows = int(kc.sum())
+    out["gate"] = dict(
+        ms=cuda_ms(torch, lambda: G.gate_rows(corpus_t, gt), 10),
+        plain_ms=cuda_ms(torch, lambda: G.gate_rows_plain(corpus_t, gt), 1),
+        library_ms=None, rows=k_rows,
+        **bound(n + n_cells * (T.CELL // T.ROW + 4), n * (1 + M)))
+    capc = F._caps_for(lit, 1 << 14, "gated")[1]
+    pk, ck = G.rescan_rows(corpus_t, ft, flags, capc)
+    pp, cp = T.filter_compact_plain(corpus_t, ft, capc, use_classes=True,
+                                    row_flags=fp)
+    err["rescan"] = cell_err(torch, pk, ck, pp, cp, capc)
+    check(int(cp.max()) <= capc, "learned gated capc below the hottest cell")
+    out["rescan"] = dict(
+        ms=cuda_ms(torch, lambda: G.rescan_rows(corpus_t, ft, flags, capc),
+                   10),
+        plain_ms=cuda_ms(torch, lambda: T.filter_compact_plain(
+            corpus_t, ft, capc, use_classes=True, row_flags=flags), 1),
+        library_ms=None, capc=capc, candidates=int(cp.sum()),
+        **bound(k_rows * T.ROW + n_cells * (T.CELL // T.ROW)
+                + n_cells * (capc + 1) * 4,
+                k_rows * T.ROW * (1 + M * W)))
+    del pk, ck, pp, cp
+    ok_ = K.filter_kconfirm(corpus_t, ft, kt, use_classes=True)
+    op_ = K.filter_kconfirm_plain(corpus_t, ft, kt, use_classes=True)
+    err["kconfirm"] = max(
+        int((ok_[0] - op_[0]).abs().max()),
+        cell_err(torch, ok_[2], ok_[1], op_[2], op_[1], K.CAPC2),
+        cell_err(torch, ok_[3], ok_[1], op_[3], op_[1], K.CAPC2))
+    n_cand, G_ = int(op_[0].sum()), len(kt.groups)
+    out["kconfirm"] = dict(
+        ms=cuda_ms(torch, lambda: K.filter_kconfirm(
+            corpus_t, ft, kt, use_classes=True), 10),
+        plain_ms=cuda_ms(torch, lambda: K.filter_kconfirm_plain(
+            corpus_t, ft, kt, use_classes=True), 1),
+        library_ms=None, candidates=n_cand, matches=int(op_[1].sum()),
+        groups=G_,
+        # per candidate and group: one 256-byte row read, ~20 hash
+        # operations and 128 signature compares
+        **bound(n + n_cand * G_ * 256 + n_cells * (2 + 2 * K.CAPC2) * 4,
+                n * (1 + M * W), n_cand * G_ * (20 + 128)))
+    del ok_, op_
+    plane = T.filter_plane(corpus_t, ft, use_classes=True)
+    plane_p = T.filter_plane_plain(corpus_t, ft, use_classes=True)
+    err["plane"] = int((plane != plane_p).sum())
+    del plane_p
+    total = int(plane.sum())
+    out["plane"] = dict(
+        ms=cuda_ms(torch, lambda: T.filter_plane(corpus_t, ft,
+                                                 use_classes=True), 10),
+        plain_ms=cuda_ms(torch, lambda: T.filter_plane_plain(
+            corpus_t, ft, use_classes=True), 1),
+        library_ms=None, candidates=total,
+        **bound(n + plane.numel(), n * (1 + M * W)))
+    cap1 = T._p2(max(total, 1))
+    mk, qk = X.plane_extract(plane, n, cap1)
+    mp, qp = X.plane_extract_plain(plane, n, cap1)
+    err["extract"] = max(int((mk - mp).abs().max()),
+                         int((qk - qp).abs().max()))
+    out["extract"] = dict(
+        ms=cuda_ms(torch, lambda: X.plane_extract(plane, n, cap1), 10),
+        plain_ms=cuda_ms(torch, lambda: X.plane_extract_plain(
+            plane, n, cap1), 1),
+        library_ms=cuda_ms(torch, lambda: torch.nonzero(plane), 5),
+        cap1=cap1,
+        **bound(plane.numel() + total * 4 + 16, 0))
+    for k, e in err.items():
+        check(e == 0, f"kernel {k} at 512 MiB != plain version")
+    out["err"] = err
+    return out
+
+
 # --- the main path -----------------------------------------------------------
 
 
 def main_path(ht, T, db, kind: str):
     """Phase 3 for one corpus kind: scan_batch over 512 MB (one warm scan
-    that learns the capacities, then TIMED_SCANS timed ones)."""
+    that learns the capacities and the family, then TIMED_SCANS timed
+    ones). Returns the corpus, the matches, the warm and timed seconds
+    and the families each scan ran (warm first, from the launch counts)."""
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
     corpus = gen_corpus(MAIN_BYTES, 1, kind)
+    st = F.family_state(db.lit)
+    fams = []
+    before = dict(st.dispatches)
     t0 = time.perf_counter()
     out = ht.scan_batch(db, [corpus], device=DEVICE)[0]
     warm_s = time.perf_counter() - t0
+    fams.append(ran_since(db.lit, before))
+    times = []
+    for _ in range(TIMED_SCANS):
+        before = dict(st.dispatches)
+        t0 = time.perf_counter()
+        out2 = ht.scan_batch(db, [corpus], device=DEVICE)[0]
+        times.append(time.perf_counter() - t0)
+        fams.append(ran_since(db.lit, before))
+        check(out2 == out, f"{kind}: repeated scan differs")
     # the planted region: the same matches as the host path over it
     edge = PLANT_AT + 4096
     host = ht.scan(db, corpus[:edge + 64].tobytes(), device="cpu")
@@ -597,33 +912,22 @@ def main_path(ht, T, db, kind: str):
     got = {m for m in out if m[2] <= edge}
     check(got == want, f"{kind}: planted-region matches differ from host")
     check(len(want) >= len(PLANTS), f"{kind}: planted matches missing")
-    times = []
-    for _ in range(TIMED_SCANS):
-        t0 = time.perf_counter()
-        out2 = ht.scan_batch(db, [corpus], device=DEVICE)[0]
-        times.append(time.perf_counter() - t0)
-        check(out2 == out, f"{kind}: repeated scan differs")
-    return corpus, out, warm_s, times
+    return corpus, out, warm_s, times, fams
 
 
-def prefix_differential(torch, T, db, corpus) -> tuple:
+def prefix_differential(torch, T, db, corpus, host: set) -> tuple:
     """Verified pairs ending in the first 64 MB: device path (over the
-    whole uploaded corpus) == the port's host filter + confirm."""
-    from hyperscan_tpu_torch.runtime.lit_runtime import (
-        confirm_candidates, verify_pairs)
-    from hyperscan_tpu_torch.runtime.smallwrite import teddy_filter_host
+    whole uploaded corpus, the database's current family) == the port's
+    host filter + confirm (`host`, from host_prefix)."""
+    from hyperscan_tpu_torch.runtime.lit_runtime import verify_pairs
+    from hyperscan_tpu_torch.ops import teddy_families as F
 
     lit = db.lit
     z = np.zeros(1, np.int64)
-    f, p = T.confirm_scan(T.corpus_tensor(corpus, DEVICE), lit, len(corpus))
+    f, p = F.confirm_scan(T.corpus_tensor(corpus, DEVICE), lit, len(corpus))
     f, p = verify_pairs(lit, corpus, z, f, p)
     dev = {(a, b) for a, b in zip(f.tolist(), p.tolist())
            if b < PREFIX_BYTES}
-    pre = np.ascontiguousarray(corpus[:PREFIX_BYTES])
-    pos, words = teddy_filter_host(pre, lit.masks)
-    fh, ph = confirm_candidates(lit, pre, z, pos, words)
-    fh, ph = verify_pairs(lit, pre, z, fh, ph)
-    host = set(zip(fh.tolist(), ph.tolist()))
     check(dev == host, f"64 MB prefix: device {len(dev)} pairs, host "
           f"{len(host)}, missing {len(host - dev)}, extra {len(dev - host)}")
     return len(dev), len(host)
@@ -636,6 +940,7 @@ def breakdown(torch, T, db, corpus) -> dict:
         finish_confirmed, verify_pairs)
     from hyperscan_tpu_torch.runtime.scan import (
         RecordSink, finalize_reports)
+    from hyperscan_tpu_torch.ops import teddy_families as F
 
     lit = db.lit
     n = len(corpus)
@@ -656,9 +961,9 @@ def breakdown(torch, T, db, corpus) -> dict:
     lap("concatenate")
     corpus_t = T.corpus_tensor(flat, DEVICE)
     lap("upload")
-    handle = T.confirm_start(corpus_t, lit, n)
+    handle = F.confirm_start(corpus_t, lit, n)
     lap("device_filter_confirm")
-    f, p = T.confirm_finish(handle)
+    f, p = F.confirm_finish(handle)
     lap("fetch_sort_expand")
     f, p = verify_pairs(lit, flat, starts, f, p)
     lap("verify_pairs")
@@ -674,8 +979,10 @@ def breakdown(torch, T, db, corpus) -> dict:
 def kernel_times(torch, T, db, corpus, clock_hz) -> dict:
     """Phase 4: both kernels at the main path's shapes (the learned
     capacities), against their plain versions, bounds and yardsticks."""
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
     lit = db.lit
-    cap1, capc, cap2 = T._caps_for(lit, 1 << 14)
+    cap1, capc, cap2 = F._caps_for(lit, 1 << 14)
     corpus_t = T.corpus_tensor(corpus, DEVICE)
     ft, ct = T.device_tables(lit, DEVICE)
     n = corpus_t.numel()
@@ -778,25 +1085,46 @@ def main() -> int:
     edbs = engine_dbs(ht)
     err_c, err_d = engine_kernel_checks(torch, edbs)
 
-    # phase 3: the main path, 10k ruleset, 512 MB, both corpus kinds
+    # phase 2c: the literal families' kernels at 16 MB and on a flood
+    fdb = flood_db(ht)
+    ferr = family_kernel_checks(torch, T, dbs[10_000], fdb)
+
+    # phase 3: the main path under the default family choice: 10k
+    # ruleset, 512 MB, both corpus kinds; then the flood database
     db = dbs[10_000]
     T.reset_launches()
-    runs = {}
+    runs, fams = {}, {}
     for kind in ("structured", "iid"):
-        runs[kind] = main_path(ht, T, db, kind)
+        *run, fams[kind] = main_path(ht, T, db, kind)
+        runs[kind] = tuple(run)
+    flood = flood_main_path(ht, T, fdb)
     launches = dict(T.LAUNCHES)
     log(f"main-path launches: {launches}")
-    for k in ("teddy_filter_compact", "teddy_hash_confirm"):
+    for kind in runs:
+        log(f"families per scan {kind} (warm first): {fams[kind]}")
+    log(f"flood main path: {flood}")
+    for k in ("teddy_filter_compact", "teddy_hash_confirm", "teddy_gate",
+              "teddy_rescan_rows", "teddy_kconfirm", "teddy_filter_plane",
+              "plane_extract"):
         check(launches[k] > 0, f"kernel {k} was not launched on the main "
               "path")
+    check(all("gated" in f for f in fams["structured"]),
+          "a structured scan did not run the gated family")
+    check(all(f == ["kconfirm"] for f in fams["iid"][1:]),
+          "an iid timed scan did not run the kconfirm family")
+    hosts = {kind: host_prefix(db.lit, r[0]) for kind, r in runs.items()}
     for kind, (corpus, out, warm_s, times) in runs.items():
-        dev_n, host_n = prefix_differential(torch, T, db, corpus)
+        dev_n, host_n = prefix_differential(torch, T, db, corpus,
+                                            hosts[kind])
         mean = sum(times) / len(times)
         log(f"main path {kind}: {len(out)} matches; 64 MB prefix verified "
             f"pairs device {dev_n} == host {host_n}; warm scan "
             f"{warm_s:.3f} s; timed scans {[round(t, 4) for t in times]} s "
             f"-> {MAIN_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
             f"the corpus inside the timed loop) [{card}]")
+
+    # phase 3c: each family forced in turn, 512 MB, both corpus kinds
+    forced = forced_families(torch, ht, T, db, runs, hosts)
 
     # phase 3b: the engine path, one database per route, 256 MiB
     ecorpus = gen_engine_corpus(ENGINE_BYTES, 5)
@@ -842,9 +1170,30 @@ def main() -> int:
             err_c = max(err_c, r["err"])
         else:
             err_d = max(err_d, r["err"])
+    # phase 4c: the family kernels at 512 MB (iid and structured),
+    # each against its plain version there too
+    ft_ = {}
+    for kind, (corpus, _out, _w, _t) in runs.items():
+        ft_[kind] = family_kernel_times(torch, T, db, corpus, clock_hz)
+        log(f"family kernel times {kind} [{card}]: "
+            + json.dumps(ft_[kind], sort_keys=True))
+        for k, e in ft_[kind]["err"].items():
+            ferr[k] = max(ferr[k], e)
+    log("forced-family GB/s [" + card + "]: " + json.dumps(
+        {f"{k} {f}": round(v["gb_s"], 4) for (k, f), v in forced.items()}))
     c = ekt[("bounded_dfa", "one_block")]
     d = ekt[("acyclic_nfa", "one_block")]
     r = kt["iid"]
+    fr = ft_["iid"]
+
+    def entry(name, source, replaces, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"hyperscan_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
     kernels = [
         {"name": "teddy_filter_compact", "route": "cuda",
          "source": "hyperscan_tpu_torch/csrc/teddy_filter_compact.cu",
@@ -872,6 +1221,19 @@ def main() -> int:
          "launches": elaunch["nfa_layered"], "max_abs_err": err_d,
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": None},
+        entry("teddy_gate", "teddy_gate.cu",
+              "hyperscan_tpu/ops/teddy.py:1381", ferr["gate"], fr["gate"]),
+        entry("teddy_rescan_rows", "teddy_filter_compact.cu",
+              "hyperscan_tpu/ops/teddy.py:1424", ferr["rescan"],
+              fr["rescan"]),
+        entry("teddy_kconfirm", "teddy_kconfirm.cu",
+              "hyperscan_tpu/ops/teddy.py:1081", ferr["kconfirm"],
+              fr["kconfirm"]),
+        entry("teddy_filter_plane", "teddy_filter_compact.cu",
+              "hyperscan_tpu/ops/teddy.py:1116", ferr["plane"], fr["plane"]),
+        entry("plane_extract", "plane_extract.cu",
+              "hyperscan_tpu/ops/teddy.py:793", ferr["extract"],
+              fr["extract"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,74 +1,74 @@
-// Teddy multi-literal filter with per-cell candidate compaction (sm_90a).
+// Teddy multi-literal filter with per-cell candidate compaction (sm_90a), in
+// three modes of one kernel.
 //
 // Replaces the Pallas TPU kernels _make_kernel_fused_classes (class tables)
-// and _make_kernel_fused (byte tables), each run with _compact_epilogue
-// (_rank_select, _prefix_rows): hyperscan_tpu/ops/teddy.py:572, :682, :175,
-// launched by the pallas_call at hyperscan_tpu/ops/teddy.py:1103.
+// and _make_kernel_fused (byte tables), hyperscan_tpu/ops/teddy.py:572, :682:
+// - compact mode: with _compact_epilogue (:175, _rank_select, _prefix_rows),
+//   the pallas_call at hyperscan_tpu/ops/teddy.py:1103 (ungated compact
+//   family);
+// - plane mode: the uint8 candidacy plane of the pallas_call at :1116 (dense
+//   family, capc = 0), which plane_extract.cu then extracts;
+// - survivor-row mode: the full class filter over the rows that the gate
+//   (teddy_gate.cu) flagged, the pallas_call at :1424 (gated family, stage 2).
 //
 // What it computes. For every corpus position p < n,
 //   cand(p) = OR_w AND_{m<M} tab[m][w][key(p - m)] != 0,
 // key(q) = b2c[byte q] (class tables, 128 entries) or byte q (byte tables,
-// 256 entries), with a zero byte for q < 0. For every 64 KiB cell it writes
-// the exact number of candidates and the first `capc` candidate positions in
-// ascending order. The count stays exact past capc: the caller reads it to
-// size the next dispatch.
+// 256 entries), with a zero byte for q < 0. Compact mode: for every 64 KiB
+// cell, the exact number of candidates and the first `capc` candidate
+// positions in ascending order; the count stays exact past capc (the caller
+// reads it to size the next dispatch). Survivor-row mode: the same, counting
+// only candidates inside the cell's flagged 128-byte rows; because the gate
+// is a superset of the filter, this equals compact mode's output. Plane
+// mode: plane[p] = cand(p) as one byte, for p below the plane's length
+// (zero at and past n).
 //
 // What bounds it. Each corpus byte is read once (n bytes at 3.35 TB/s), but
 // each byte costs 1 + M*W shared-memory table lookups with class tables (M*W
-// with byte tables): at M=6, W=4 that is 25 lookups a byte against 132 SMs x
-// 32 lookups a clock, so the lookups, not device memory, bound the kernel.
+// with byte tables): at M=5, W=4 that is 21 lookups a byte against 132 SMs x
+// 32 lookups a clock, so the lookups, not device memory, bound compact and
+// plane mode. Survivor-row mode does that work only for the flagged rows
+// (a few percent of the corpus, or none), so there its launch and the
+// 512-byte flag read of each cell bound it.
 //
 // Design. One block per 64 KiB cell, so blocks never talk to each other (the
 // TPU grid ran cells in order; here they run in any order). The tables live
 // in shared memory (at most 8 x 4 x 256 words = 32 KiB). Each thread reads
 // 16 bytes with one vector load and takes the up to 7 bytes of look-back it
-// needs from its left neighbour's registers by a warp shuffle; lane 0 reloads
-// them (an L1/L2 hit). Positions are ranked by a popcount, a warp shuffle
-// scan and a shared-memory scan across warps, so they come out ascending
-// with no sort. None of the TPU's layouts (128-lane rows, halo row, rank
+// needs from its left neighbour's registers by a warp shuffle (teddy_filter.
+// cuh). Positions are ranked by a popcount, a warp shuffle scan and a
+// shared-memory scan across warps, so they come out ascending with no sort.
+// In survivor-row mode the block first lists its flagged rows in shared
+// memory (a block scan over the 512 flags), then gives each listed row to 8
+// threads, 32 rows a step: a row's first thread reloads the 16 bytes before
+// the row, so a row's look-back is read from the flat corpus directly (the
+// reference's packing of (predecessor, row) pairs is a TPU layout, not
+// needed here). None of the TPU's layouts (128-lane rows, halo row, rank
 // selection by matmul) are needed.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "teddy_filter.cuh"
 
 namespace {
 
-constexpr int kCell = 65536;
-constexpr int kThreads = 256;
-constexpr int kChunk = 16;                  // bytes per thread per step
-constexpr int kStep = kThreads * kChunk;    // bytes per block per step
-constexpr int kWarps = kThreads / 32;
-static_assert(kThreads == 256, "one thread loads one b2c entry");
-static_assert(kCell % kStep == 0, "a cell is a whole number of steps");
+using namespace teddy;
 
-// 16 bytes at p (a multiple of 16); zero for bytes before 0 or at/after n.
-__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ corpus,
-                                        long long n, long long p) {
-  if (p >= 0 && p + 16 <= n)
-    return *reinterpret_cast<const uint4*>(corpus + p);
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const long long q = p + k;
-    if (q >= 0 && q < n) w[k >> 2] |= uint32_t(corpus[q]) << ((k & 3) * 8);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
+enum Mode { kCompact = 0, kPlane = 1, kRows = 2 };
 
-template <int M, bool kClasses>
+template <int M, bool kClasses, int kMode>
 __global__ void __launch_bounds__(kThreads)
-filter_compact_kernel(const uint8_t* __restrict__ corpus, long long n,
-                      const uint8_t* __restrict__ b2c,
-                      const uint32_t* __restrict__ tabs, int W, int capc,
-                      int32_t* __restrict__ out_pos,
-                      int32_t* __restrict__ counts) {
+filter_kernel(const uint8_t* __restrict__ corpus, long long n,
+              const uint8_t* __restrict__ b2c,
+              const uint32_t* __restrict__ tabs, int W, int capc,
+              int32_t* __restrict__ out_pos, int32_t* __restrict__ counts,
+              uint8_t* __restrict__ plane, long long plane_len,
+              const uint8_t* __restrict__ row_flags) {
   constexpr int kTab = kClasses ? 128 : 256;
   extern __shared__ uint32_t s_tab[];  // [M][W][kTab]
   __shared__ uint8_t s_b2c[256];
   __shared__ int s_warp[kWarps];
+  __shared__ int16_t s_rows[kMode == kRows ? kRowsPerCell : 1];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
   for (int i = tid; i < M * W * kTab; i += kThreads) s_tab[i] = tabs[i];
   if (kClasses) s_b2c[tid] = b2c[tid];  // kThreads == 256
   __syncthreads();
@@ -76,59 +76,57 @@ filter_compact_kernel(const uint8_t* __restrict__ corpus, long long n,
   const long long cell0 = (long long)blockIdx.x * kCell;
   int32_t* cell_out = out_pos + (long long)blockIdx.x * capc;
   int running = 0;  // candidates of this cell before the current step
-  for (int step = 0; step < kCell / kStep; ++step) {
-    const long long base = cell0 + (long long)step * kStep;
-    if (base >= n) break;  // uniform across the block
-    const long long p0 = base + tid * kChunk;
-    const uint4 cur = load16(corpus, n, p0);
-    // bytes p0-8 .. p0-1: the left neighbour's upper half
-    uint32_t pz = __shfl_up_sync(0xffffffffu, cur.z, 1);
-    uint32_t pw = __shfl_up_sync(0xffffffffu, cur.w, 1);
-    if (lane == 0) {
-      const uint4 prev = load16(corpus, n, p0 - 16);
-      pz = prev.z;
-      pw = prev.w;
+  int n_steps = kCell / kStep;
+  int n_rows = 0;
+  if (kMode == kRows) {
+    // list the flagged rows of this cell, ascending
+    const uint8_t* f = row_flags + (long long)blockIdx.x * kRowsPerCell;
+    const int f0 = f[2 * tid] != 0;
+    const int f1 = f[2 * tid + 1] != 0;
+    const int off = block_scan(f0 + f1, s_warp, n_rows);
+    if (f0) s_rows[off] = int16_t(2 * tid);
+    if (f1) s_rows[off + f0] = int16_t(2 * tid + 1);
+    __syncthreads();
+    n_steps = (n_rows + kThreads / 8 - 1) / (kThreads / 8);
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    long long p0;
+    bool reload;
+    if (kMode == kRows) {
+      const int slot = step * (kThreads / 8) + (tid >> 3);
+      // an idle thread sits at n rounded up to 16 (aligned loads): no
+      // byte below n, so no candidate
+      p0 = slot < n_rows
+               ? cell0 + (long long)s_rows[slot] * kRowBytes + (tid & 7) * 16
+               : (n + 15) & ~15ll;
+      reload = (tid & 7) == 0;
+    } else {
+      const long long base = cell0 + (long long)step * kStep;
+      if (base >= n) break;  // uniform across the block
+      p0 = base + tid * kChunk;
+      reload = lane == 0;
     }
-    const uint32_t win[6] = {pz, pw, cur.x, cur.y, cur.z, cur.w};
-    // key[k] belongs to byte p0 - 8 + k
-    uint32_t key[24];
+    uint32_t win[6];
+    load_window(corpus, n, p0, reload, win);
+    uint32_t bits =
+        cand_bits<M, kClasses>(win, s_b2c, s_tab, W, p0, n);
+    if (kMode == kPlane) {
+      if (p0 < plane_len) {
+        uint32_t w[4];
 #pragma unroll
-    for (int k = 8 - (M - 1); k < 24; ++k) {
-      const uint32_t b = (win[k >> 2] >> ((k & 3) * 8)) & 0xFFu;
-      key[k] = kClasses ? uint32_t(s_b2c[b]) : b;
-    }
-    uint32_t bits = 0;
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      uint32_t any = 0;
-      for (int w = 0; w < W; ++w) {
-        const uint32_t* t = s_tab + w * kTab;
-        uint32_t a = t[key[8 + j]];
-#pragma unroll
-        for (int m = 1; m < M; ++m) a &= t[m * W * kTab + key[8 + j - m]];
-        any |= a;
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t b = bits >> (4 * k);
+          w[k] = (b & 1u) | ((b >> 1) & 1u) << 8 | ((b >> 2) & 1u) << 16 |
+                 ((b >> 3) & 1u) << 24;
+        }
+        *reinterpret_cast<uint4*>(plane + p0) =
+            make_uint4(w[0], w[1], w[2], w[3]);
       }
-      if (any != 0u && p0 + j < n) bits |= 1u << j;
+      continue;
     }
     // block-wide exclusive scan of the per-thread candidate counts
-    const int cnt = __popc(bits);
-    int incl = cnt;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    int warp_base = 0;
-    int step_total = 0;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      const int v = s_warp[k];
-      if (k < warp) warp_base += v;
-      step_total += v;
-    }
-    int r = running + warp_base + incl - cnt;
+    int step_total;
+    int r = running + block_scan(__popc(bits), s_warp, step_total);
     while (bits) {
       const int j = __ffs(bits) - 1;
       bits &= bits - 1;
@@ -136,46 +134,49 @@ filter_compact_kernel(const uint8_t* __restrict__ corpus, long long n,
       ++r;
     }
     running += step_total;
-    __syncthreads();  // s_warp is rewritten by the next step
   }
-  if (tid == 0) counts[blockIdx.x] = running;
+  if (kMode != kPlane && tid == 0) counts[blockIdx.x] = running;
 }
 
-template <int M, bool kClasses>
+template <int M, bool kClasses, int kMode>
 cudaError_t launch(const uint8_t* corpus, long long n, const uint8_t* b2c,
                    const uint32_t* tabs, int W, int capc, int32_t* out_pos,
-                   int32_t* counts, int n_cells, cudaStream_t stream) {
-  const size_t smem = size_t(M) * W * (kClasses ? 128 : 256) * 4;
-  auto kernel = filter_compact_kernel<M, kClasses>;
+                   int32_t* counts, uint8_t* plane, long long plane_len,
+                   const uint8_t* row_flags, int n_cells,
+                   cudaStream_t stream) {
+  const size_t smem = table_bytes(M, W, kClasses);
+  auto kernel = filter_kernel<M, kClasses, kMode>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return e;
   }
   kernel<<<n_cells, kThreads, smem, stream>>>(corpus, n, b2c, tabs, W, capc,
-                                              out_pos, counts);
+                                              out_pos, counts, plane,
+                                              plane_len, row_flags);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int hs_teddy_filter_compact(const void* corpus, long long n,
-                                       const void* b2c, const void* tabs,
-                                       int M, int W, int classes, int capc,
-                                       void* out_pos, void* counts,
-                                       int n_cells, void* stream) {
+template <int kMode>
+int dispatch(const void* corpus, long long n, const void* b2c,
+             const void* tabs, int M, int W, int classes, int capc,
+             void* out_pos, void* counts, void* plane, long long plane_len,
+             const void* row_flags, int n_cells, void* stream) {
   const auto* c = static_cast<const uint8_t*>(corpus);
   const auto* b = static_cast<const uint8_t*>(b2c);
   const auto* t = static_cast<const uint32_t*>(tabs);
   auto* o = static_cast<int32_t*>(out_pos);
   auto* k = static_cast<int32_t*>(counts);
+  auto* pl = static_cast<uint8_t*>(plane);
+  const auto* rf = static_cast<const uint8_t*>(row_flags);
   auto s = static_cast<cudaStream_t>(stream);
-#define HS_CASE(MM)                                                       \
-  case MM:                                                                \
-    return classes ? launch<MM, true>(c, n, b, t, W, capc, o, k, n_cells, \
-                                      s)                                  \
-                   : launch<MM, false>(c, n, b, t, W, capc, o, k,         \
-                                       n_cells, s);
+#define HS_CASE(MM)                                                        \
+  case MM:                                                                 \
+    return classes ? launch<MM, true, kMode>(c, n, b, t, W, capc, o, k, pl, \
+                                             plane_len, rf, n_cells, s)    \
+                   : launch<MM, false, kMode>(c, n, b, t, W, capc, o, k,   \
+                                              pl, plane_len, rf, n_cells,  \
+                                              s);
   switch (M) {
     HS_CASE(1)
     HS_CASE(2)
@@ -189,6 +190,37 @@ extern "C" int hs_teddy_filter_compact(const void* corpus, long long n,
       return int(cudaErrorInvalidValue);
   }
 #undef HS_CASE
+}
+
+}  // namespace
+
+extern "C" int hs_teddy_filter_compact(const void* corpus, long long n,
+                                       const void* b2c, const void* tabs,
+                                       int M, int W, int classes, int capc,
+                                       void* out_pos, void* counts,
+                                       int n_cells, void* stream) {
+  return dispatch<kCompact>(corpus, n, b2c, tabs, M, W, classes, capc,
+                            out_pos, counts, nullptr, 0, nullptr, n_cells,
+                            stream);
+}
+
+extern "C" int hs_teddy_filter_plane(const void* corpus, long long n,
+                                     const void* b2c, const void* tabs, int M,
+                                     int W, int classes, void* plane,
+                                     long long plane_len, int n_cells,
+                                     void* stream) {
+  return dispatch<kPlane>(corpus, n, b2c, tabs, M, W, classes, 0, nullptr,
+                          nullptr, plane, plane_len, nullptr, n_cells,
+                          stream);
+}
+
+extern "C" int hs_teddy_rescan_rows(const void* corpus, long long n,
+                                    const void* b2c, const void* tabs, int M,
+                                    int W, int classes, int capc,
+                                    const void* row_flags, void* out_pos,
+                                    void* counts, int n_cells, void* stream) {
+  return dispatch<kRows>(corpus, n, b2c, tabs, M, W, classes, capc, out_pos,
+                         counts, nullptr, 0, row_flags, n_cells, stream);
 }
 
 extern "C" const char* hs_teddy_filter_compact_error(int code) {

@@ -2,10 +2,10 @@
 
 Every `csrc/*.cu` source is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, at first use, and loaded with
-ctypes. Sources that are not built yet are compiled all at once, one
+ctypes (`csrc/*.cuh` holds code that several sources include). Sources that are not built yet are compiled all at once, one
 `nvcc` process each. The libraries go to `hyperscan_tpu_torch/build/`
-under a name keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. A failed build raises
+under a name keyed by a hash of the source, the shared headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is reused. A failed build raises
 with the compiler's output; nothing falls back to the plain versions.
 """
 
@@ -33,7 +33,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # launches per kernel, counted by each wrapper where it launches its
 # kernel and nowhere else (a run shows it went through the kernels)
 LAUNCHES = {"teddy_filter_compact": 0, "teddy_hash_confirm": 0,
-            "dfa_scan": 0, "nfa_layered": 0}
+            "dfa_scan": 0, "nfa_layered": 0, "teddy_gate": 0,
+            "teddy_rescan_rows": 0, "teddy_kconfirm": 0,
+            "teddy_filter_plane": 0, "plane_extract": 0}
 
 
 def reset_launches() -> None:
@@ -60,8 +62,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     src = sources()[name]
-    tag = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 
 

@@ -1,29 +1,28 @@
-"""Teddy multi-literal filter, per-cell candidate compaction and hash
-confirm on a torch device.
+"""Teddy multi-literal filter, candidate compaction and hash confirm on
+a torch device: the kernels and tables that the literal path's families
+(`teddy_families`) are made of.
 
 Reference analogue: the FDR/Teddy literal matchers (src/fdr/teddy.c) and
 the confirm step that follows them (do_confirm_fdr, src/fdr/fdr.c:330).
-This is the port of the JAX package's ungated compact family
-(`hyperscan_tpu/ops/teddy.py`: `filter_confirm_body` with `capc > 0`,
-`compact_combine` and `_hash_confirm_stage`):
+This is the port of `hyperscan_tpu/ops/teddy.py`'s filter and confirm
+kernels:
 
   candidate at byte p  <=>  OR_w AND_{m<M} tab[m][w][key(p - m)] != 0
 
 where key(q) is the byte at q (byte tables) or its class under the
 byte->class remap (class tables, `_class_split`), with a zero byte before
-offset 0. Per 64 KiB cell the filter emits the exact candidate count and
-the first `capc` candidate positions in ascending order; the combine
-turns those into one `cap1` position list; the hash confirm probes each
+offset 0. Kernel A (`filter_compact`) emits per 64 KiB cell the exact
+candidate count and the first `capc` positions; its plane mode
+(`filter_plane`) writes a candidacy plane instead, and its survivor-row
+mode is `teddy_gate.rescan_rows`. Kernel B (`hash_confirm`) probes each
 candidate's masked 8-byte tail against the open-addressed tables of
 `runtime.lit_runtime.confirm_device_tables` and emits (class + 1, pos)
 pairs.
 
-Two kernels carry it, written by hand for sm_90a (`csrc/`):
-`filter_compact` (teddy_filter_compact.cu) and `hash_confirm`
-(teddy_hash_confirm.cu). Each wrapper launches its kernel for a CUDA
-tensor and counts the launch in `LAUNCHES`; for a CPU tensor it runs the
-plain PyTorch version beside it (`*_plain`), which is also what the
-kernels are held against on the card.
+Every kernel is written by hand for sm_90a (`csrc/`). Each wrapper
+launches its kernel for a CUDA tensor and counts the launch in
+`LAUNCHES`; for a CPU tensor it runs the plain PyTorch version beside it
+(`*_plain`), which is also what the kernels are held against on the card.
 
 The corpus is a flat uint8 tensor: none of the TPU layouts (128-lane
 rows, halo row, cell bucketing) are carried over.
@@ -43,18 +42,27 @@ from ._build import LAUNCHES, reset_launches  # noqa: F401
 
 CELL = 65536  # bytes per filter cell (one CUDA block); the reference's
 # ROWS_PER_CELL * 128, so per-cell counts compare with it directly
-
-# learned-capacity floors: capc is the per-cell compaction capacity,
-# cap1 the candidate list, cap2 the confirmed-pair buffer
-CAPC_FLOOR = 128
-CAP1_FLOOR = 1024
-CAP2_FLOOR = 1024
+ROW = 128  # bytes per gate row: the reference's survivor unit, in which
+# GATE_ROW_FRAC is defined
+EXTRACT_CHUNK = 256  # bytes per chunk of the dense extraction (reference
+# EXTRACT_CHUNK, hyperscan_tpu/ops/teddy.py:997)
 # cells per step of the plain filter: bounds its memory at any corpus size
 _PLAIN_CHUNK_CELLS = 256
 
 
 def _p2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
+
+
+def get_capacity_hint(obj, key: str) -> int:
+    """Learned record capacity of one engine route (0 = none yet), kept
+    on the engine under this package's own attribute name (reference:
+    get_capacity_hint, hyperscan_tpu/ops/teddy.py:856)."""
+    return getattr(obj, "_torch_cap_hints", {}).get(key, 0)
+
+
+def set_capacity_hint(obj, key: str, capacity: int) -> None:
+    obj.__dict__.setdefault("_torch_cap_hints", {})[key] = int(capacity)
 
 
 def flatten_blocks(blocks) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -231,10 +239,13 @@ def _candidates_plain(corpus: torch.Tensor, tables: FilterTables,
 
 
 def filter_compact_plain(corpus_u8: torch.Tensor, tables: FilterTables,
-                         capc: int, *, use_classes: bool):
+                         capc: int, *, use_classes: bool,
+                         row_flags: Optional[torch.Tensor] = None):
     """Plain PyTorch version of kernel A (same contract as
-    `filter_compact`); works chunk by chunk so its memory stays bounded
-    at any corpus size. Slots past a cell's count hold 0."""
+    `filter_compact`; with `row_flags`, of its survivor-row mode
+    `teddy_gate.rescan_rows`: only candidates in flagged 128-byte rows
+    count); works chunk by chunk so its memory stays bounded at any
+    corpus size. Slots past a cell's count hold 0."""
     n = corpus_u8.numel()
     n_cells = _n_cells(n)
     dev = corpus_u8.device
@@ -248,6 +259,9 @@ def filter_compact_plain(corpus_u8: torch.Tensor, tables: FilterTables,
         nz = torch.nonzero(
             _candidates_plain(corpus_u8, tables, use_classes, lo, hi)
         ).squeeze(1) + lo
+        if row_flags is not None:
+            nz = nz[row_flags[torch.div(nz, ROW, rounding_mode="floor")]
+                    != 0]
         cell = torch.div(nz, CELL, rounding_mode="floor")
         cnt = torch.bincount(cell - c0, minlength=c1 - c0)
         counts[c0:c1] = cnt.int()
@@ -267,10 +281,51 @@ def _filter_lib():
         lib.hs_teddy_filter_compact.restype = ci
         lib.hs_teddy_filter_compact.argtypes = [
             vp, cll, vp, vp, ci, ci, ci, ci, vp, vp, ci, vp]
+        lib.hs_teddy_filter_plane.restype = ci
+        lib.hs_teddy_filter_plane.argtypes = [
+            vp, cll, vp, vp, ci, ci, ci, vp, cll, ci, vp]
+        lib.hs_teddy_rescan_rows.restype = ci
+        lib.hs_teddy_rescan_rows.argtypes = [
+            vp, cll, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, vp]
         lib.hs_teddy_filter_compact_error.restype = ctypes.c_char_p
         lib.hs_teddy_filter_compact_error.argtypes = [ci]
         lib._typed = True
     return lib
+
+
+def _on_card(corpus_u8: torch.Tensor, tables: FilterTables,
+             use_classes: bool) -> bool:
+    """Check a filter kernel's corpus and tables; True when the kernel
+    runs (a CUDA corpus), False when the plain version does (a CPU one)."""
+    _check_corpus(corpus_u8)
+    if use_classes and tables.cmasks is None:
+        raise ValueError("class tables requested but the alphabet does "
+                         "not compress to 128 classes")
+    if not 1 <= tables.M <= 8:
+        raise ValueError(f"suffix depth M={tables.M} outside 1..8")
+    if corpus_u8.device.type == "cpu":
+        return False
+    if corpus_u8.device.type != "cuda":
+        raise ValueError(f"unsupported device {corpus_u8.device}")
+    if corpus_u8.data_ptr() % 16:
+        raise ValueError("corpus must be 16-byte aligned (vector loads)")
+    tab = tables.cmasks if use_classes else tables.masks
+    if tab.device != corpus_u8.device:
+        raise ValueError("tables and corpus lie on different devices")
+    return True
+
+
+def _table_args(tables: FilterTables, use_classes: bool):
+    """(b2c pointer or None, table pointer, M, W, classes flag)."""
+    tab = tables.cmasks if use_classes else tables.masks
+    return (tables.b2c.data_ptr() if use_classes else None, tab.data_ptr(),
+            tables.M, tables.W, int(use_classes))
+
+
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.hs_teddy_filter_compact_error(rc).decode())
 
 
 def filter_compact(corpus_u8: torch.Tensor, tables: FilterTables,
@@ -284,24 +339,11 @@ def filter_compact(corpus_u8: torch.Tensor, tables: FilterTables,
     ascending, valid for slots j < min(count, capc); counts [n_cells]
     int32, the exact candidate count of each cell), n_cells =
     max(1, ceil(n / 65536)). Positions >= n are never candidates."""
-    _check_corpus(corpus_u8)
-    if use_classes and tables.cmasks is None:
-        raise ValueError("class tables requested but the alphabet does "
-                         "not compress to 128 classes")
-    if not 1 <= tables.M <= 8:
-        raise ValueError(f"suffix depth M={tables.M} outside 1..8")
     if capc < 1:
         raise ValueError("capc must be positive")
-    if corpus_u8.device.type == "cpu":
+    if not _on_card(corpus_u8, tables, use_classes):
         return filter_compact_plain(corpus_u8, tables, capc,
                                     use_classes=use_classes)
-    if corpus_u8.device.type != "cuda":
-        raise ValueError(f"unsupported device {corpus_u8.device}")
-    if corpus_u8.data_ptr() % 16:
-        raise ValueError("corpus must be 16-byte aligned (vector loads)")
-    tab = tables.cmasks if use_classes else tables.masks
-    if tab.device != corpus_u8.device:
-        raise ValueError("tables and corpus lie on different devices")
     lib = _filter_lib()
     n = corpus_u8.numel()
     n_cells = _n_cells(n)
@@ -311,34 +353,79 @@ def filter_compact(corpus_u8: torch.Tensor, tables: FilterTables,
                          device=corpus_u8.device)
     stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
     rc = lib.hs_teddy_filter_compact(
-        corpus_u8.data_ptr(), n,
-        tables.b2c.data_ptr() if use_classes else None,
-        tab.data_ptr(), tables.M, tables.W, int(use_classes),
+        corpus_u8.data_ptr(), n, *_table_args(tables, use_classes),
         capc, pos.data_ptr(), counts.data_ptr(), n_cells, stream)
-    if rc:
-        raise RuntimeError("teddy_filter_compact launch failed: "
-                           + lib.hs_teddy_filter_compact_error(rc).decode())
+    _raise_on(rc, lib, "teddy_filter_compact")
     LAUNCHES["teddy_filter_compact"] += 1
     return pos, counts
+
+
+def plane_len(n: int) -> int:
+    """Bytes of the candidacy plane of an n-byte corpus: n rounded up to
+    whole extraction chunks."""
+    return -(-n // EXTRACT_CHUNK) * EXTRACT_CHUNK
+
+
+def filter_plane_plain(corpus_u8: torch.Tensor, tables: FilterTables, *,
+                       use_classes: bool) -> torch.Tensor:
+    """Plain PyTorch version of `filter_plane` (same contract)."""
+    n = corpus_u8.numel()
+    plane = torch.zeros(plane_len(n), dtype=torch.uint8,
+                        device=corpus_u8.device)
+    step = _PLAIN_CHUNK_CELLS * CELL
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        plane[lo:hi] = _candidates_plain(corpus_u8, tables, use_classes,
+                                         lo, hi).to(torch.uint8)
+    return plane
+
+
+def filter_plane(corpus_u8: torch.Tensor, tables: FilterTables, *,
+                 use_classes: bool) -> torch.Tensor:
+    """Kernel A in plane mode (the dense family's filter, reference: the
+    pallas_call at hyperscan_tpu/ops/teddy.py:1116 with capc = 0).
+
+    Returns the candidacy plane, uint8 [plane_len(n)]: 1 where a
+    candidate ends, 0 elsewhere (and at and past n)."""
+    if not _on_card(corpus_u8, tables, use_classes):
+        return filter_plane_plain(corpus_u8, tables, use_classes=use_classes)
+    lib = _filter_lib()
+    n = corpus_u8.numel()
+    plane = torch.empty(plane_len(n), dtype=torch.uint8,
+                        device=corpus_u8.device)
+    stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
+    rc = lib.hs_teddy_filter_plane(
+        corpus_u8.data_ptr(), n, *_table_args(tables, use_classes),
+        plane.data_ptr(), plane.numel(), _n_cells(n), stream)
+    _raise_on(rc, lib, "teddy_filter_plane")
+    LAUNCHES["teddy_filter_plane"] += 1
+    return plane
+
+
+def _cell_slots(counts: torch.Tensor, capc: int, cap: int):
+    """Slot k of one list gathered from per-cell lists of `capc` entries
+    (the first min(count, capc) of each cell valid, cells in order) ->
+    (cell, index within the cell, valid), in plain torch over O(n_cells)
+    counts: slot rank -> owning cell by a searchsorted over the count
+    cumsum (reference: compact_combine, hyperscan_tpu/ops/teddy.py:1243)."""
+    n_cells = counts.shape[0]
+    eff = counts.clamp(max=capc).long()
+    cum = torch.cumsum(eff, 0)
+    slot = torch.arange(cap, dtype=torch.int64, device=counts.device)
+    cell = torch.searchsorted(cum, slot, right=True).clamp(max=n_cells - 1)
+    within = (slot - (cum[cell] - eff[cell])).clamp(0, capc - 1)
+    return cell, within, slot < cum[-1]
 
 
 def compact_combine(pos: torch.Tensor, counts: torch.Tensor, capc: int,
                     cap1: int):
     """Per-cell compacted positions -> one list of `cap1` candidate
-    positions (-1 past the valid ones), in plain torch over O(n_cells)
-    counts: slot rank -> owning cell by a searchsorted over the count
-    cumsum (reference: compact_combine, hyperscan_tpu/ops/teddy.py:1243).
+    positions (-1 past the valid ones).
 
     Returns (meta1 int64 [2] = (exact candidate total, max cell count),
     positions int32 [cap1])."""
-    n_cells = counts.shape[0]
-    eff = counts.clamp(max=capc).long()
-    cum = torch.cumsum(eff, 0)
-    slot = torch.arange(cap1, dtype=torch.int64, device=pos.device)
-    cell = torch.searchsorted(cum, slot, right=True).clamp(max=n_cells - 1)
-    within = (slot - (cum[cell] - eff[cell])).clamp(0, capc - 1)
+    cell, within, have = _cell_slots(counts, capc, cap1)
     got = pos[cell, within]
-    have = slot < cum[-1]
     out = torch.where(have, got, torch.full_like(got, -1))
     meta1 = torch.stack([counts.long().sum(), counts.long().max()])
     return meta1, out
@@ -467,108 +554,3 @@ def hash_confirm(corpus_u8: torch.Tensor, pos: torch.Tensor,
     if pos.numel():
         LAUNCHES["teddy_hash_confirm"] += 1
     return pairs, total
-
-
-# --------------------------------------------------------------------------
-# the fused pipeline: start / finish / scan
-# --------------------------------------------------------------------------
-
-
-def _caps_for(lit, capacity: int) -> Tuple[int, int, int]:
-    """(cap1, capc, cap2) for the next dispatch, learned from the running
-    max of observed loads (~2x margins; cap1 1.25x, as in the reference's
-    `_caps_for`) and kept on the lit object under this package's own
-    attribute name."""
-    obs = getattr(lit, "_torch_cap_obs", None)
-    if obs is None:
-        return (max(capacity, CAP1_FLOOR), CAPC_FLOOR,
-                max(capacity // 4, CAP2_FLOOR))
-    t1, h1, t2 = obs
-    return (max(CAP1_FLOOR, _p2(5 * t1 // 4)),
-            min(CELL, max(CAPC_FLOOR, _p2(2 * h1))),
-            max(CAP2_FLOOR, _p2(2 * t2)))
-
-
-def get_capacity_hint(obj, key: str) -> int:
-    """Learned record capacity of one engine route (0 = none yet), kept
-    on the engine under this package's own attribute name (reference:
-    get_capacity_hint, hyperscan_tpu/ops/teddy.py:856)."""
-    return getattr(obj, "_torch_cap_hints", {}).get(key, 0)
-
-
-def set_capacity_hint(obj, key: str, capacity: int) -> None:
-    obj.__dict__.setdefault("_torch_cap_hints", {})[key] = int(capacity)
-
-
-def _observe_caps(lit, t1: int, h1: int, t2: int) -> None:
-    obs = getattr(lit, "_torch_cap_obs", (0, 0, 0))
-    lit._torch_cap_obs = tuple(max(a, b) for a, b in zip(obs, (t1, h1, t2)))
-
-
-@dataclasses.dataclass
-class ConfirmHandle:
-    """A dispatched filter + confirm whose results are still on the
-    device."""
-
-    lit: object
-    corpus: torch.Tensor
-    n_valid: int
-    caps: Tuple[int, int, int]  # (cap1, capc, cap2)
-    meta: torch.Tensor  # int64 [3] = (candidate total, max cell, pairs)
-    pairs: torch.Tensor  # int32 [cap2, 2] = (class id + 1, pos)
-
-
-def confirm_start(corpus_u8: torch.Tensor, lit, n_valid: int,
-                  capacity: int = 1 << 14) -> ConfirmHandle:
-    """Dispatch filter, compaction, combine and hash confirm over the
-    first `n_valid` bytes of a device corpus without waiting for them.
-    The class tables are used whenever the alphabet compresses to 128
-    classes or fewer, the byte tables otherwise."""
-    if not 0 <= n_valid <= corpus_u8.numel():
-        raise ValueError("n_valid outside the corpus")
-    ft, ct = device_tables(lit, corpus_u8.device)
-    cap1, capc, cap2 = _caps_for(lit, capacity)
-    corpus = corpus_u8[:n_valid]
-    pos_c, counts = filter_compact(corpus, ft, capc,
-                                   use_classes=ft.cmasks is not None)
-    meta1, pos = compact_combine(pos_c, counts, capc, cap1)
-    pairs, total2 = hash_confirm(corpus, pos, ct, cap2)
-    meta = torch.cat([meta1, total2.long()])
-    return ConfirmHandle(lit, corpus_u8, n_valid, (cap1, capc, cap2),
-                         meta, pairs)
-
-
-def confirm_finish(handle: ConfirmHandle) -> Tuple[np.ndarray, np.ndarray]:
-    """Fetch a started scan's hash-matched pairs as (fid_array,
-    pos_array) — callers must exact-verify with
-    runtime.lit_runtime.verify_pairs.
-
-    Overflow never drops a match: when a cell's exact count is above
-    capc, the candidate total above cap1 or the confirmed total above
-    cap2, the scan is dispatched again on the device with the learned
-    capacities (each at least the next power of two of what overflowed).
-    capc cannot grow past one cell, so this ends."""
-    from ..runtime.lit_runtime import expand_confirm_classes
-
-    while True:
-        t1, h1, t2 = (int(x) for x in handle.meta.tolist())
-        _observe_caps(handle.lit, t1, h1, t2)
-        cap1, capc, cap2 = handle.caps
-        if h1 <= capc and t1 <= cap1 and t2 <= cap2:
-            break
-        handle = confirm_start(handle.corpus, handle.lit, handle.n_valid)
-    if t2 == 0:
-        z = np.zeros(0, dtype=np.int64)
-        return z, z
-    pairs = handle.pairs[:t2].long()
-    key = torch.sort((pairs[:, 1] << 20) | pairs[:, 0]).values.cpu().numpy()
-    cls = (key & 0xFFFFF) - 1
-    pos = key >> 20
-    return expand_confirm_classes(handle.lit, cls, pos)
-
-
-def confirm_scan(corpus_u8: torch.Tensor, lit, n_valid: int,
-                 capacity: int = 1 << 14) -> Tuple[np.ndarray, np.ndarray]:
-    """Filter + hash confirm over a device corpus: hash-matched
-    (fid_array, pos_array) pairs (see confirm_finish)."""
-    return confirm_finish(confirm_start(corpus_u8, lit, n_valid, capacity))

@@ -1,0 +1,184 @@
+"""The gated family's two stages on a torch device: the single-word gate
+with one flag per 128-byte row, and the full filter over the flagged rows.
+
+Reference counterpart: `filter_confirm_body_gated`
+(hyperscan_tpu/ops/teddy.py:1342) with `_make_kernel_gate` (:649, the
+pallas_call at :1381), `dev_gate_table` (:1644) and stage 2's
+`_make_kernel_fused_classes` over the survivor rows (the pallas_call at
+:1424). Kernels: `csrc/teddy_gate.cu` (`gate_rows`) and the survivor-row
+mode of `csrc/teddy_filter_compact.cu` (`rescan_rows`).
+
+The reference lists the survivors at a learned capacity capK by a cumsum
+and a searchsorted over every row, packs (predecessor, row) pairs into a
+second rows array for the TPU's cross-row shift, and extracts the
+candidates of the packed plane. Here each block of stage 2 lists the
+flagged rows of its own cell and reads each row and its look-back from
+the flat corpus, so no survivor list, capacity or packing exists; stage
+2 has kernel A's output contract, which `compact_combine` takes as it is.
+The survivor count K (flagged rows below n) is still summed, for the
+family switch at GATE_ROW_FRAC. The reference's `_hi_class` fast path
+(:1633, one remap gather when every high byte shares a class) has no
+counterpart: the CUDA kernels remap through one shared-memory lookup
+either way.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ._build import LAUNCHES
+from .teddy import (CELL, ROW, FilterTables, _candidates_plain,
+                    _class_split, _filter_lib, _n_cells, _on_card,
+                    _raise_on, _table_args, device_tables,
+                    filter_compact_plain)
+
+ROWS_PER_CELL = CELL // ROW
+
+
+@dataclasses.dataclass
+class GateTables:
+    """The gate on one device: the full masks' byte->class remap and the
+    gate word of every class and suffix offset."""
+
+    b2c: torch.Tensor  # [256] uint8 (the filter's class remap)
+    gcm: torch.Tensor  # [M, 128] int32
+
+    @property
+    def M(self) -> int:
+        return int(self.gcm.shape[0])
+
+    @property
+    def as_filter(self) -> FilterTables:
+        """The gate as a one-word class-table filter (W = 1), the form
+        the filter's plain version and checks take."""
+        g = self.gcm[:, None, :]
+        return FilterTables(g, self.b2c, g)
+
+
+def device_gate_table(lit, device) -> Optional[GateTables]:
+    """The gate tables on `device`, or None when the database has no gate
+    (`lit.gate_masks` is None) or its alphabet does not compress to 128
+    classes (reference: dev_gate_table, hyperscan_tpu/ops/teddy.py:1644).
+    The gate bits are ORs of full-mask bucket bits, so the gate word is
+    constant within every byte class of the full masks: class c takes the
+    gate word of its first byte. Cached on the lit object per device."""
+    if getattr(lit, "gate_masks", None) is None:
+        return None
+    device = torch.device(device)
+    cache = lit.__dict__.setdefault("_torch_gate", {})
+    key = str(device)
+    if key not in cache:
+        ft, _ct = device_tables(lit, device)
+        split = _class_split(np.ascontiguousarray(lit.masks, np.int32))
+        if split is None:
+            cache[key] = None
+        else:
+            inv = np.concatenate([split[0][0], split[0][1]])
+            rep = np.zeros(128, np.int64)  # class id -> its first byte
+            for b in range(255, -1, -1):
+                rep[inv[b]] = b
+            gcm = np.ascontiguousarray(lit.gate_masks[:, 0, rep], np.int32)
+            cache[key] = GateTables(ft.b2c, torch.from_numpy(gcm).to(device))
+    return cache[key]
+
+
+def gate_rows_plain(corpus_u8: torch.Tensor, gate: GateTables
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `gate_rows` (same contract)."""
+    n = corpus_u8.numel()
+    n_cells = _n_cells(n)
+    flags = torch.zeros(n_cells * ROWS_PER_CELL, dtype=torch.uint8,
+                        device=corpus_u8.device)
+    step = 256 * CELL
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        hit = _candidates_plain(corpus_u8, gate.as_filter, True, lo, hi)
+        pad = -(hi - lo) % ROW
+        if pad:
+            hit = torch.cat([hit, hit.new_zeros(pad)])
+        flags[lo // ROW:lo // ROW + hit.numel() // ROW] = \
+            hit.reshape(-1, ROW).any(1).to(torch.uint8)
+    counts = flags.reshape(n_cells, ROWS_PER_CELL).sum(1, dtype=torch.int32)
+    return flags, counts
+
+
+def _gate_lib():
+    from ._build import library
+
+    lib = library("teddy_gate")
+    if not getattr(lib, "_typed", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.hs_teddy_gate.restype = ci
+        lib.hs_teddy_gate.argtypes = [vp, cll, vp, vp, ci, vp, vp, ci, vp]
+        lib.hs_teddy_gate_error.restype = ctypes.c_char_p
+        lib.hs_teddy_gate_error.argtypes = [ci]
+        lib._typed = True
+    return lib
+
+
+def gate_rows(corpus_u8: torch.Tensor, gate: GateTables
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5: the single-word gate, one flag per 128-byte row.
+
+    A position p < n passes when AND_{m<M} gcm[m][b2c[byte p - m]] != 0
+    (a zero byte before offset 0). Returns (flags uint8 [n_cells * 512]:
+    1 for a row with a passing position, 0 otherwise and past n; counts
+    int32 [n_cells]: flagged rows per 64 KiB cell). A row whose flag is 0
+    holds no candidate of the full filter."""
+    if not _on_card(corpus_u8, gate.as_filter, True):
+        return gate_rows_plain(corpus_u8, gate)
+    lib = _gate_lib()
+    n = corpus_u8.numel()
+    n_cells = _n_cells(n)
+    flags = torch.empty(n_cells * ROWS_PER_CELL, dtype=torch.uint8,
+                        device=corpus_u8.device)
+    counts = torch.empty(n_cells, dtype=torch.int32, device=corpus_u8.device)
+    stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
+    rc = lib.hs_teddy_gate(corpus_u8.data_ptr(), n, gate.b2c.data_ptr(),
+                           gate.gcm.data_ptr(), gate.M, flags.data_ptr(),
+                           counts.data_ptr(), n_cells, stream)
+    if rc:
+        raise RuntimeError("teddy_gate launch failed: "
+                           + lib.hs_teddy_gate_error(rc).decode())
+    LAUNCHES["teddy_gate"] += 1
+    return flags, counts
+
+
+def rescan_rows(corpus_u8: torch.Tensor, tables: FilterTables,
+                flags: torch.Tensor, capc: int):
+    """Kernel 6: the full class filter over the flagged rows only (kernel
+    A's survivor-row mode).
+
+    flags : uint8 [n_cells * 512] row flags (`gate_rows`)
+    Returns kernel A's (pos [n_cells, capc] int32, ascending; counts
+    [n_cells] int32, exact) over the candidates inside flagged rows —
+    equal to `filter_compact`'s output, since the gate is a superset."""
+    if capc < 1:
+        raise ValueError("capc must be positive")
+    n = corpus_u8.numel()
+    n_cells = _n_cells(n)
+    if flags.dtype != torch.uint8 or \
+            flags.shape != (n_cells * ROWS_PER_CELL,):
+        raise ValueError("flags must be uint8 [n_cells * 512]")
+    if not _on_card(corpus_u8, tables, True):
+        return filter_compact_plain(corpus_u8, tables, capc,
+                                    use_classes=True, row_flags=flags)
+    if flags.device != corpus_u8.device:
+        raise ValueError("flags and corpus lie on different devices")
+    lib = _filter_lib()
+    pos = torch.empty((n_cells, capc), dtype=torch.int32,
+                      device=corpus_u8.device)
+    counts = torch.empty(n_cells, dtype=torch.int32, device=corpus_u8.device)
+    stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
+    rc = lib.hs_teddy_rescan_rows(
+        corpus_u8.data_ptr(), n, *_table_args(tables, True), capc,
+        flags.contiguous().data_ptr(), pos.data_ptr(), counts.data_ptr(),
+        n_cells, stream)
+    _raise_on(rc, lib, "teddy_rescan_rows")
+    LAUNCHES["teddy_rescan_rows"] += 1
+    return pos, counts

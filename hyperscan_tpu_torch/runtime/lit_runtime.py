@@ -534,8 +534,9 @@ def scan_literal_path(
     # device path: filter + per-cell compaction + hash confirm on the
     # torch device — only (pos, fid) pairs cross the device boundary;
     # exact re-verify on host. Capacity overflow re-dispatches on the
-    # device at the next power of two (ops.teddy.confirm_finish).
-    from ..ops.teddy import confirm_scan, corpus_tensor
+    # device at the next power of two (ops.teddy_families.confirm_finish).
+    from ..ops.teddy import corpus_tensor
+    from ..ops.teddy_families import confirm_scan
 
     if corpus_t is None:
         corpus_t = corpus_tensor(corpus, device)

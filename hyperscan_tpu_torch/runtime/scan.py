@@ -233,8 +233,8 @@ def scan_blocks_raw(
     """Scan a batch of independent blocks; returns per-block RecordBatch
     of internal (expr_index, to, from) records (pre report-processing),
     deduped and sorted. Capacity overflow retries happen inside the
-    device kernel wrappers (ops.teddy.confirm_finish, the engine scans of
-    ops.dfa_kernel and ops.nfa_kernel).
+    device kernel wrappers (ops.teddy_families.confirm_finish, the engine
+    scans of ops.dfa_kernel and ops.nfa_kernel).
 
     Above the database's `host_scan_limit` the blocks are concatenated
     into one flat corpus, uploaded once to the torch `device`, and both

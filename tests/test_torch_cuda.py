@@ -215,3 +215,113 @@ def test_engine_scan_on_card_equals_cpu_and_counts_launches(card):
     assert T.LAUNCHES["nfa_layered"] >= 1
     assert got == ht.scan_batch(db, blocks, device="cpu")
     assert sum(map(len, got)) >= 10
+
+
+# --- the literal families: gate (5), survivor rescan (6), kconfirm (4),
+# --- plane mode and extraction (3) -----------------------------------------
+
+from hyperscan_tpu_torch.ops import extract as X  # noqa: E402
+from hyperscan_tpu_torch.ops import teddy_families as F  # noqa: E402
+from hyperscan_tpu_torch.ops import teddy_gate as G  # noqa: E402
+from hyperscan_tpu_torch.ops import teddy_kconfirm as K  # noqa: E402
+
+WORDS = ["attack", "payload", "shell", "admin", "select", "union"]
+GATED_PATS = [WORDS[i % 6] + str(i) + "zq" for i in range(600)]
+FAMILY_KERNELS = {
+    "gated": ("teddy_gate", "teddy_rescan_rows", "teddy_hash_confirm"),
+    "compact": ("teddy_filter_compact", "teddy_hash_confirm"),
+    "kconfirm": ("teddy_kconfirm",),
+    "dense": ("teddy_filter_plane", "plane_extract", "teddy_hash_confirm"),
+}
+
+
+def _gated_corpus(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    c = (32 + rng.integers(0, 95, size=n)).astype(np.uint8)
+    for k, off in enumerate(range(0, n - 16, 4093)):
+        p = [b"attack0zq ", b"union5zq", b"payload13zq!"][k % 3]
+        c[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    return c
+
+
+def _same_cells(pos_k, cnt_k, pos_p, cnt_p, cap):
+    assert torch.equal(cnt_k, cnt_p)
+    valid = (torch.arange(cap, device=cnt_p.device)[None, :]
+             < cnt_p.clamp(max=cap)[:, None])
+    assert torch.equal(pos_k[valid], pos_p[valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 13, 100, 0])
+def test_gate_and_rescan_kernels_equal_plain(card, n):
+    db = ht.compile_multi(GATED_PATS, ids=list(range(len(GATED_PATS))))
+    ft, _ct = T.device_tables(db.lit, card)
+    gt = G.device_gate_table(db.lit, card)
+    corpus = torch.from_numpy(_gated_corpus(n, 1)).to(card)
+    flags_k, k_k = G.gate_rows(corpus, gt)
+    flags_p, k_p = G.gate_rows_plain(corpus, gt)
+    assert torch.equal(flags_k, flags_p) and torch.equal(k_k, k_p)
+    for capc in (1, 128):
+        pos_k, cnt_k = G.rescan_rows(corpus, ft, flags_k, capc)
+        pos_p, cnt_p = T.filter_compact_plain(corpus, ft, capc,
+                                              use_classes=True,
+                                              row_flags=flags_p)
+        _same_cells(pos_k, cnt_k, pos_p, cnt_p, capc)
+        # the gate is a superset: the rescan equals the full filter
+        pos_a, cnt_a = T.filter_compact(corpus, ft, capc, use_classes=True)
+        _same_cells(pos_k, cnt_k, pos_a, cnt_a, capc)
+    if n > 1000:
+        assert int(cnt_k.sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 13, 100, 0])
+def test_kconfirm_kernel_equals_plain(card, n):
+    db = ht.compile_multi(PATS, ids=list(range(len(PATS))))
+    ft, _ct = T.device_tables(db.lit, card)
+    kt = K.confirm_planes(db.lit, card)
+    assert kt is not None
+    corpus = torch.from_numpy(_corpus(n, 4)).to(card)
+    for use_classes in (True, False):
+        out_k = K.filter_kconfirm(corpus, ft, kt, use_classes=use_classes)
+        out_p = K.filter_kconfirm_plain(corpus, ft, kt,
+                                        use_classes=use_classes)
+        assert torch.equal(out_k[0], out_p[0])  # candidates a cell
+        _same_cells(out_k[2], out_k[1], out_p[2], out_p[1], K.CAPC2)
+        _same_cells(out_k[3], out_k[1], out_p[3], out_p[1], K.CAPC2)
+    if n > 1000:
+        assert int(out_p[1].sum()) > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 13, 100, 0])
+def test_plane_and_extract_kernels_equal_plain(card, n):
+    db = ht.compile_multi(PATS, ids=list(range(len(PATS))))
+    ft, _ct = T.device_tables(db.lit, card)
+    corpus = torch.from_numpy(_corpus(n, 5)).to(card)
+    for use_classes in (True, False):
+        plane = T.filter_plane(corpus, ft, use_classes=use_classes)
+        assert torch.equal(plane, T.filter_plane_plain(
+            corpus, ft, use_classes=use_classes))
+    for cap1 in (3, 1 << 20):
+        for n_valid in (n, max(0, n - 300)):
+            meta_k, pos_k = X.plane_extract(plane, n_valid, cap1)
+            meta_p, pos_p = X.plane_extract_plain(plane, n_valid, cap1)
+            assert torch.equal(meta_k, meta_p) and torch.equal(pos_k, pos_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(F.FAMILIES))
+def test_scan_each_family_on_card_counts_launches(card, family):
+    db = compile_patterns(GATED_PATS, ids=list(range(len(GATED_PATS))),
+                          grey=Grey(host_scan_limit=0))
+    data = _gated_corpus(300_001, 6).tobytes()
+    F.force_family(db.lit, family)
+    T.reset_launches()
+    got = ht.scan(db, data)  # the card, by default
+    for name in FAMILY_KERNELS[family]:
+        assert T.LAUNCHES[name] >= 1, name
+    others = set(T.LAUNCHES) - set(FAMILY_KERNELS[family])
+    assert all(T.LAUNCHES[k] == 0 for k in others)
+    assert got == ht.scan(db, data, device="cpu")
+    assert len(got) >= 50

@@ -3,9 +3,10 @@ match list (hyperscan_tpu_torch.scan(db, data, device="cpu") vs
 hyperscan_tpu.scan).
 
 Both databases are compiled with Grey(host_scan_limit=0), so every scan
-takes the device path: the JAX side in Pallas interpret mode with the
-literal family pinned to ungated compact + hash confirm, the port on its
-plain PyTorch versions. Inputs come from a numpy seed; equality is
+takes the device path: the JAX side in Pallas interpret mode, the port on
+its plain PyTorch versions, both with the literal family pinned to
+ungated compact + hash confirm (tests/test_torch_families.py covers the
+other families). Inputs come from a numpy seed; equality is
 exact."""
 
 import numpy as np
@@ -18,6 +19,7 @@ from hyperscan_tpu.database import compile_patterns as ref_compile
 from hyperscan_tpu.grey import Grey as RefGrey
 from hyperscan_tpu_torch.database import compile_patterns as port_compile
 from hyperscan_tpu_torch.grey import Grey as PortGrey
+from hyperscan_tpu_torch.ops.teddy_families import force_family
 
 from test_anchored import FAMILY
 from test_chains import CHAIN_PATTERNS
@@ -32,6 +34,7 @@ def _pair(pats, flags=None, ids=None):
     port = port_compile(pats, flags, ids, grey=PortGrey(host_scan_limit=0))
     assert ref.lit is not None and not ref.engines, "literal-routed only"
     force_ungated_compact(ref.lit)
+    force_family(port.lit, "compact")
     return ref, port
 
 

@@ -3,9 +3,10 @@ package (hyperscan_tpu_torch.ops.teddy vs hyperscan_tpu.ops.teddy).
 
 Both packages compile the same rulesets; inputs come from a numpy seed.
 The JAX side runs as its own tests run it: Pallas in interpret mode on
-the CPU, with the literal family forced to ungated compact + hash
-confirm. The port runs its plain PyTorch versions, which is what a CPU
-tensor takes. Every value is an integer, so equality is exact.
+the CPU. Both packages have the literal family forced to ungated compact
++ hash confirm (tests/test_torch_families.py covers the other three).
+The port runs its plain PyTorch versions, which is what a CPU tensor
+takes. Every value is an integer, so equality is exact.
 
 Two known differences are not faults: the reference's raw candidate
 totals count candidates in the zero padding past n_valid, so candidate
@@ -23,6 +24,7 @@ import jax.numpy as jnp
 from hyperscan_tpu.ops import teddy as RT
 from hyperscan_tpu.runtime.lit_runtime import verify_pairs as ref_verify
 from hyperscan_tpu_torch.ops import teddy as PT
+from hyperscan_tpu_torch.ops import teddy_families as PF
 from hyperscan_tpu_torch.runtime.lit_runtime import verify_pairs
 
 # literal vocabulary + NUL/0xFF bytes inside factors, so the zero bytes
@@ -50,6 +52,7 @@ def dbs():
     ref = hs.compile_multi(PATS, ids=ids)
     port = ht.compile_multi(PATS, ids=ids)
     force_ungated_compact(ref.lit)
+    PF.force_family(port.lit, "compact")
     return ref, port
 
 
@@ -167,7 +170,7 @@ def _hash_pairs_ref(lit, corpus) -> set:
 
 
 def _hash_pairs_port(lit, corpus) -> set:
-    f, p = PT.confirm_scan(torch.from_numpy(corpus), lit, len(corpus))
+    f, p = PF.confirm_scan(torch.from_numpy(corpus), lit, len(corpus))
     return set(zip(f.tolist(), p.tolist()))
 
 
@@ -179,7 +182,7 @@ def test_confirm_equals_reference(dbs, kind, n):
     z = np.zeros(1, np.int64)
     f, p = RT.teddy_confirm_finish(_ref_start(ref.lit, corpus))
     f_r, p_r = np.asarray(f), np.asarray(p)
-    f_p, p_p = PT.confirm_scan(torch.from_numpy(corpus), port.lit, n)
+    f_p, p_p = PF.confirm_scan(torch.from_numpy(corpus), port.lit, n)
     # hash-matched pairs: the same tables and the same device semantics
     assert set(zip(f_p.tolist(), p_p.tolist())) == \
         set(zip(f_r.tolist(), p_r.tolist()))
@@ -199,15 +202,16 @@ def test_confirm_overflow_keeps_every_pair(dbs, monkeypatch):
         corpus[off:off + len(PLANT)] = np.frombuffer(PLANT, np.uint8)
     full = _hash_pairs_port(port.lit, corpus)
     lit = ht.compile_multi(PATS, ids=list(range(len(PATS)))).lit
-    monkeypatch.setattr(PT, "CAPC_FLOOR", 1)
-    monkeypatch.setattr(PT, "CAP1_FLOOR", 1)
-    monkeypatch.setattr(PT, "CAP2_FLOOR", 1)
-    assert PT._caps_for(lit, 1) == (1, 1, 1)
-    handle = PT.confirm_start(torch.from_numpy(corpus), lit, len(corpus),
+    PF.force_family(lit, "compact")
+    monkeypatch.setattr(PF, "CAPC_FLOOR", 1)
+    monkeypatch.setattr(PF, "CAP1_FLOOR", 1)
+    monkeypatch.setattr(PF, "CAP2_FLOOR", 1)
+    assert PF._caps_for(lit, 1) == (1, 1, 1)
+    handle = PF.confirm_start(torch.from_numpy(corpus), lit, len(corpus),
                               capacity=1)
-    assert handle.caps == (1, 1, 1)
-    f, p = PT.confirm_finish(handle)
+    assert handle.caps == (1, 1, 1) and handle.family == "compact"
+    f, p = PF.confirm_finish(handle)
     assert set(zip(f.tolist(), p.tolist())) == full
-    t1, h1, t2 = lit._torch_cap_obs
-    cap1, capc, cap2 = PT._caps_for(lit, 1)
+    t1, h1, t2 = PF.family_state(lit).obs["compact"]
+    cap1, capc, cap2 = PF._caps_for(lit, 1)
     assert h1 > 1 and t2 > 1 and capc >= h1 and cap1 >= t1 and cap2 >= t2
