@@ -22,8 +22,12 @@ Phases, in order; any failure exits non-zero:
    (`aaaa` over a run of `a`): the gate (row flags, K), the survivor-row
    rescan (positions, counts), kconfirm (the four counters and each
    cell's matches) and the plane mode and its extraction (the plane,
-   (total, hit chunks), positions). Tolerance: exact (every value is an
-   integer).
+   (total, hit chunks), positions). Then (2d) kernel 7 (teddy_words,
+   count and list mode) on the 10k ruleset's byte masks at 16 MB,
+   structured and iid, also at an unaligned length with a look-back head;
+   its candidates must equal kernel A's; and dfa_scan_batch (kernel C
+   chained in plane mode) on a bounded-DFA batch of 1,024 x 16 KiB rows.
+   Tolerance: exact (every value is an integer).
 3. The literal path at full size, under the port's default family
    choice: `scan_batch` with the 10k ruleset over a 512 MB corpus,
    structured and iid, and the flood database over 256 KiB. The planted
@@ -39,13 +43,27 @@ Phases, in order; any failure exits non-zero:
    route's database through `scan_batch` over 256 MiB, as one block and
    as 16,384 blocks of 16 KiB; every repeat equals the first scan, the
    match lists over a 32 MiB prefix equal the port's host path, and
-   kernels C and D must have been launched during these scans.
+   kernels C and D must have been launched during these scans. The
+   multi-device path at full size (3d), on make_mesh() (the visible
+   cards) and on a hand-built mesh of four shards on card 0:
+   teddy_scan over both 512 MB corpora (its total equals kernel A's
+   candidate count), sharded_teddy_count (equal to it), scan_batch(mesh=)
+   over 1,024 blocks of 512 KiB (equal to the unsharded scan_batch; GB/s
+   with the upload inside the timed loop), sharded_scan_counts and
+   sharded_scan_matches with the bounded DFA over 16,384 x 16 KiB (equal
+   to the unsharded dfa_scan_batch + extract_matches); kernel 7, kernel C
+   and the filter kernel of the family that each shard ran (the literal
+   path's own family choice) must have been launched.
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
    and per-kernel times at the main paths' shapes, beside their bounds
    and their plain versions' times (and torch.nonzero's beside the
    extraction); the seconds of the speculative scans' host chains. Every
    literal kernel is held against its plain version at these shapes too
-   (exact), and its `max_abs_err` covers both sizes.
+   (exact), and its `max_abs_err` covers both sizes. (4d) kernel 7's two
+   modes over the 512 MB corpora (count mode also over four shard
+   segments, row 8's shape) and the chained dfa_scan_batch over
+   16,384 x 16 KiB, beside their bounds and plain versions; at these
+   shapes too each equals its plain version (exact).
 5. One JSON line listing every kernel, the card's name and power limit
    as nvidia-smi reports them, and the final status line.
 
@@ -879,6 +897,398 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
     return out
 
 
+# --- the multi-device path: kernel 7, the batch DFA scan, the mesh ---------
+
+SHARD_BLOCK = 512 * 1024  # sharded scan_batch: 1,024 blocks of 512 KiB
+SHARDS_ONE_CARD = 4  # the hand-built mesh: four shards on card 0
+DFA_CHECK_ROWS = 1024  # dfa_scan_batch check: 1,024 rows of 16 KiB
+
+
+def words_err(cnt_k, pos_k, words_k, cnt_p, pos_p, words_p) -> int:
+    """Max abs difference of kernel 7's per-cell counts, positions and
+    words from its plain version's (the int32 words compared as values:
+    zero exactly when they are bitwise equal)."""
+    total = pos_p.numel()
+    err = int((cnt_k.long() - cnt_p.long()).abs().max()) if \
+        cnt_p.numel() else 0
+    err = max(err, abs(int(cnt_k.long().sum()) - total))
+    if total:
+        err = max(err, int((pos_k[:total] - pos_p).abs().max()),
+                  int((words_k[:, :total].long() - words_p.long())
+                      .abs().max()))
+    return err
+
+
+def words_check(torch, T, TW, corpus_t, ft, masks, start=0) -> tuple:
+    """Kernel 7, count and list mode, against its plain version on the
+    same inputs (exact), and its candidate positions against kernel A's
+    plane mode with byte tables (a cross-check of two kernels). Returns
+    (max abs error, candidates)."""
+    cnt_k = TW.filter_words_count(corpus_t, masks, start)
+    cnt_p, pos_p, words_p = TW.filter_words_plain(corpus_t, masks, start)
+    total = pos_p.numel()
+    pos_k, words_k = TW.filter_words_list(corpus_t, masks, cnt_k,
+                                          max(1, total), start)
+    torch.cuda.synchronize()
+    err = words_err(cnt_k, pos_k, words_k, cnt_p, pos_p, words_p)
+    check(err == 0, f"kernel 7 (start {start}) != plain version")
+    plane = T.filter_plane(corpus_t, ft, use_classes=False)
+    cand_a = torch.nonzero(plane[start:corpus_t.numel()]).squeeze(1).int()
+    check(torch.equal(cand_a, pos_k[:total]),
+          "kernel 7 candidates != kernel A's candidates")
+    return err, total
+
+
+def dfa_batch_inputs(torch, eng, corpus, rows: int, salt: int):
+    """A [rows, 16 KiB] batch of `corpus` on the card, with some rows cut
+    short, its lengths, and random entry states."""
+    data = corpus[:rows * ENGINE_BLOCK].reshape(rows, ENGINE_BLOCK)
+    rng = np.random.default_rng(salt)
+    lengths = np.full(rows, ENGINE_BLOCK, np.int32)
+    short = rng.random(rows) < 0.25
+    lengths[short] = rng.integers(0, ENGINE_BLOCK, int(short.sum()))
+    init = rng.integers(0, eng.num_states, rows).astype(np.int32)
+    return (torch.from_numpy(np.ascontiguousarray(data)).to(DEVICE),
+            torch.from_numpy(lengths).to(DEVICE),
+            torch.from_numpy(init).to(DEVICE))
+
+
+def multi_kernel_checks(torch, T, db, edbs) -> dict:
+    """Phase 2d: kernel 7 both modes against its plain version and kernel
+    A's candidates at 16 MB (10k ruleset byte masks, structured and iid;
+    also at an unaligned length with a look-back head), and the chained
+    kernel-C dfa_scan_batch against its lockstep plain version on a
+    bounded-DFA batch of 1,024 x 16 KiB rows (scalar and per-row entry
+    states). Exact."""
+    from hyperscan_tpu_torch.ops import dfa as D
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import teddy_words as TW
+
+    ft, _ct = T.device_tables(db.lit, DEVICE)
+    masks = TW.masks_tensor(db.lit.masks, DEVICE)
+    errs = {"words": 0, "dfa_batch": 0}
+    for kind in ("structured", "iid"):
+        corpus_t = torch.from_numpy(gen_corpus(CHECK_BYTES, 2, kind)).to(
+            DEVICE)
+        for n, start in ((CHECK_BYTES, 0), (CHECK_BYTES - 3, 5), (100, 0)):
+            e, total = words_check(torch, T, TW, corpus_t[:n], ft, masks,
+                                   start)
+            errs["words"] = max(errs["words"], e)
+            log(f"kernel check 7 {kind}: n={n} start={start}: {total} "
+                "candidates, count and list == plain == kernel A: exact")
+    eng = edbs["bounded_dfa"][0].engines[0]
+    tabs = DK.device_tables(eng, DEVICE)
+    d_t, l_t, i_t = dfa_batch_inputs(torch, eng, gen_engine_corpus(
+        DFA_CHECK_ROWS * ENGINE_BLOCK, 6), DFA_CHECK_ROWS, 7)
+    for init in (int(eng.start_state), i_t):
+        args = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
+                init, d_t, l_t)
+        a_k, f_k = D.dfa_scan_batch(*args)
+        a_p, f_p = D.dfa_scan_batch_plain(*args)
+        e = max(int((a_k - a_p).abs().max()), int((f_k - f_p).abs().max()))
+        errs["dfa_batch"] = max(errs["dfa_batch"], e)
+        check(e == 0, "chained dfa_scan_batch != plain version")
+        entry = "scalar" if isinstance(init, int) else "per-row"
+        log(f"kernel check dfa_scan_batch ({entry} entry): "
+            f"{DFA_CHECK_ROWS} x {ENGINE_BLOCK} rows, "
+            f"{int((a_p != 0).sum())} accepts: exact")
+    return errs
+
+
+def shard_meshes(torch, P) -> dict:
+    """The visible cards (make_mesh()) and four shards on card 0."""
+    return {"cards": P.make_mesh(),
+            f"{SHARDS_ONE_CARD}_shards_1_card": P.Mesh(
+                [torch.device(DEVICE, 0)] * SHARDS_ONE_CARD, ("shards",))}
+
+
+def sharded_path(torch, ht, T, db, runs, edbs, ecorpus) -> dict:
+    """Phase 3d, the slice at full width, every call through its entry
+    point: teddy_scan over both 512 MiB corpora; sharded_teddy_count and
+    scan_batch(mesh=) over them (1,024 blocks of 512 KiB) on both meshes,
+    one warm scan and FORCED_TIMED timed ones; sharded_scan_counts and
+    sharded_scan_matches with the bounded DFA over 16,384 x 16 KiB on
+    both meshes. The launch counts are read right after; the checks
+    against the unsharded scans and kernel A come after that."""
+    from hyperscan_tpu_torch import parallel as P
+    from hyperscan_tpu_torch.ops import teddy_families as F
+    from hyperscan_tpu_torch.ops import teddy_words as TW
+
+    meshes = shard_meshes(torch, P)
+    eng = edbs["bounded_dfa"][0].engines[0]
+    eblocks = engine_blocks(ecorpus, "blocks_16k")
+    before = dict(F.family_state(db.lit).dispatches)
+    T.reset_launches()
+    lit_out, dfa_out = {}, {}
+    for kind, (corpus, _o, _w, _t) in runs.items():
+        t0 = time.perf_counter()
+        total, pos, _words = TW.teddy_scan(corpus, db.lit.masks,
+                                           hint_obj=db.lit, device=DEVICE)
+        r = {"teddy_scan_s": time.perf_counter() - t0, "total": total,
+             "pos": pos, "counts": {}, "lists": {}}
+        blocks = [corpus[i:i + SHARD_BLOCK]
+                  for i in range(0, len(corpus), SHARD_BLOCK)]
+        for name, m in meshes.items():
+            t0 = time.perf_counter()
+            r["counts"][name] = (P.sharded_teddy_count(corpus, db.lit.masks,
+                                                       m),
+                                 time.perf_counter() - t0)
+            warm = ht.scan_batch(db, blocks, mesh=m)
+            times = []
+            for _ in range(FORCED_TIMED):
+                t0 = time.perf_counter()
+                again = ht.scan_batch(db, blocks, mesh=m)
+                times.append(time.perf_counter() - t0)
+                check(again == warm, f"{kind} {name}: repeat differs")
+            r["lists"][name] = (warm, times)
+        lit_out[kind] = (r, blocks)
+    for name, m in meshes.items():
+        data, lengths = P.pad_batch_for_mesh(eblocks, m, ENGINE_BLOCK)
+        t0 = time.perf_counter()
+        cnt = P.sharded_scan_counts(eng, data, lengths, m)
+        t1 = time.perf_counter()
+        mt = P.sharded_scan_matches(eng, data, lengths, m,
+                                    capacity=T._p2(max(cnt, 1)))
+        torch.cuda.synchronize()
+        dfa_out[name] = (cnt, [x.cpu() for x in mt], t1 - t0,
+                         time.perf_counter() - t1)
+    launches = dict(T.LAUNCHES)
+    return {"lit": lit_out, "dfa": dfa_out, "launches": launches,
+            "families": ran_since(db.lit, before), "meshes": meshes,
+            "data": (data, lengths)}
+
+
+def sharded_breakdown(torch, db, blocks, mesh) -> dict:
+    """Seconds of each stage of one scan_batch(mesh=) of a literal
+    database, the stages done one by one with a synchronize after each
+    (the shard stage holds the per-shard uploads, the chosen family's
+    kernels on each shard and the one fetch)."""
+    from hyperscan_tpu_torch.ops.teddy import flatten_blocks
+    from hyperscan_tpu_torch.parallel.sharded import sharded_literal_confirm
+    from hyperscan_tpu_torch.runtime.lit_runtime import (
+        finish_confirmed, verify_pairs)
+    from hyperscan_tpu_torch.runtime.scan import (
+        RecordSink, finalize_reports)
+
+    out = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = now - t
+        t = now
+
+    blocks = [bytes(b) for b in blocks]
+    lap("bytes_copy")
+    flat = flatten_blocks(blocks)
+    lap("concatenate")
+    shards = sharded_literal_confirm(db.lit, blocks, mesh, 4096, flat=flat)
+    lap("shards_upload_device_fetch")
+    sinks = [RecordSink() for _ in blocks]
+    for (g, f, p, corpus_d, starts_d, ends_d) in shards:
+        if not len(g):
+            continue
+        f, p = verify_pairs(db.lit, corpus_d, starts_d, f, p)
+        for (bi, e, to, frm) in finish_confirmed(db, corpus_d, starts_d,
+                                                 ends_d, f, p):
+            sinks[g[bi]].add(e, to, frm)
+    lap("verify_and_windows")
+    for s_, b in zip(sinks, blocks):
+        finalize_reports(db, s_.materialize(len(b), db.som_eids()),
+                         end_offset=len(b))
+    lap("reports")
+    return out
+
+
+def sharded_checks(torch, ht, T, db, edbs, sh) -> None:
+    """Phase 3d's checks: teddy_scan's total equals kernel A's candidate
+    count and its positions kernel A's; every sharded count equals it;
+    every sharded match list equals the unsharded scan_batch; the
+    sharded DFA totals equal the count, and the gathered matches equal
+    the unsharded dfa_scan_batch + extract_matches."""
+    from hyperscan_tpu_torch.ops import dfa as D
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import match as MT
+
+    ft, _ct = T.device_tables(db.lit, DEVICE)
+    for kind, (r, blocks) in sh["lit"].items():
+        corpus_t = T.corpus_tensor(np.concatenate(blocks), DEVICE)
+        plane = T.filter_plane(corpus_t, ft, use_classes=True)
+        cand = torch.nonzero(plane).squeeze(1).int().cpu().numpy()
+        del plane, corpus_t
+        check(r["total"] == len(cand) and np.array_equal(r["pos"], cand),
+              f"{kind}: teddy_scan total {r['total']} != kernel A's "
+              f"{len(cand)} candidates")
+        for name, (cnt, _s) in r["counts"].items():
+            check(cnt == r["total"], f"{kind} {name}: sharded_teddy_count "
+                  f"{cnt} != teddy_scan {r['total']}")
+        single = ht.scan_batch(db, blocks, device=DEVICE)
+        for name, (lists, _t) in r["lists"].items():
+            check(lists == single, f"{kind} {name}: sharded scan_batch != "
+                  "unsharded")
+        # the same blocks unsharded, timed in the same call, and the
+        # sharded scan's stages
+        r["unsharded_times"] = []
+        for _ in range(FORCED_TIMED):
+            t0 = time.perf_counter()
+            again = ht.scan_batch(db, blocks, device=DEVICE)
+            r["unsharded_times"].append(time.perf_counter() - t0)
+            check(again == single, f"{kind}: unsharded repeat differs")
+        r["stages"] = {name: sharded_breakdown(torch, db, blocks, m)
+                       for name, m in sh["meshes"].items()}
+        log(f"sharded {kind}: teddy_scan total {r['total']} == kernel A "
+            f"candidates == sharded_teddy_count on {list(r['counts'])}; "
+            f"scan_batch(mesh=) == unsharded on every mesh "
+            f"({sum(map(len, single))} matches over {len(blocks)} blocks)")
+    eng = edbs["bounded_dfa"][0].engines[0]
+    tabs = DK.device_tables(eng, DEVICE)
+    data, lengths = sh["data"]
+    d_t = torch.from_numpy(data).to(DEVICE)
+    accepts, finals = D.dfa_scan_batch(
+        tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
+        int(eng.start_state), d_t, torch.from_numpy(lengths).to(DEVICE))
+    want_n = int(MT.count_matches(accepts))
+    tot, sid, blk, tos = (x.cpu() for x in MT.extract_matches(
+        accepts, T._p2(max(want_n, 1))))
+    del accepts
+    for name, (cnt, (tot_d, sid_d, blk_d, tos_d, eod_d), _tc, _tm) in \
+            sh["dfa"].items():
+        n_sh = tot_d.shape[0]
+        rows = data.shape[0] // n_sh
+        check(cnt == want_n == int(tot_d.sum()) == int(tot),
+              f"{name}: sharded DFA count {cnt}, totals "
+              f"{int(tot_d.sum())}, unsharded {want_n}")
+        keep = [slice(0, int(t)) for t in tot_d]
+        g_sid = torch.cat([sid_d[d, keep[d]] for d in range(n_sh)])
+        g_blk = torch.cat([blk_d[d, keep[d]] + d * rows
+                           for d in range(n_sh)])
+        g_tos = torch.cat([tos_d[d, keep[d]] for d in range(n_sh)])
+        check(torch.equal(g_sid, sid[:want_n])
+              and torch.equal(g_blk, blk[:want_n])
+              and torch.equal(g_tos, tos[:want_n]),
+              f"{name}: sharded DFA matches != unsharded")
+        check(torch.equal(eod_d.reshape(-1), torch.from_numpy(
+            np.asarray(eng.accept_eod_id))[finals.cpu().long()]),
+            f"{name}: EOD sets differ")
+        log(f"sharded DFA {name}: {cnt} matches over {data.shape[0]} "
+            f"blocks on {n_sh} shards == unsharded dfa_scan_batch + "
+            "extract_matches")
+
+
+def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
+                       clock_hz) -> dict:
+    """Phase 4d: kernel 7 count and list mode over each 512 MiB corpus
+    (row 8 is count mode, once per shard: also timed over the 4-shard
+    segments), and the chained dfa_scan_batch over 16,384 x 16 KiB,
+    each beside its bound and its plain version (CUDA events). At these
+    shapes every kernel is also held against its plain version (exact):
+    kernel 7's per-cell counts, positions and words over each corpus;
+    count mode over each of the four segments against the plain version
+    over the same segment and against the whole corpus's plain positions
+    inside it; the batch scan's accept plane and finals. The errors are
+    returned under "err"."""
+    from hyperscan_tpu_torch import parallel as P
+    from hyperscan_tpu_torch.ops import dfa as D
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import teddy_words as TW
+
+    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
+    masks = TW.masks_tensor(db.lit.masks, DEVICE)
+    M, W = int(masks.shape[0]), int(masks.shape[1])
+
+    def bound(n_bytes, lookups):
+        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_o = lookups / lookups_per_s * 1e3
+        return {"bound_ms": max(t_b, t_o),
+                "bound_by": "operations" if t_o > t_b else "bytes"}
+
+    out = {"err": {"words": 0, "dfa_batch": 0}}
+    for kind, (corpus, _o, _w, _t) in runs.items():
+        corpus_t = T.corpus_tensor(corpus, DEVICE)
+        n = corpus_t.numel()
+        n_cells = T._n_cells(n)
+        cnt = TW.filter_words_count(corpus_t, masks)
+        total = int(cnt.long().sum())
+        pos_k, words_k = TW.filter_words_list(corpus_t, masks, cnt,
+                                              max(1, total))
+        cnt_p, pos_p, words_p = TW.filter_words_plain(corpus_t, masks)
+        err = words_err(cnt, pos_k, words_k, cnt_p, pos_p, words_p)
+        plain_ms = cuda_ms(torch, lambda: TW.filter_words_plain(
+            corpus_t, masks), 1)
+        # row 8's shape: count mode over each shard's segment of four,
+        # with its look-back bytes
+        parts = []
+        for lo, hi in P.sharded.segments(n, SHARDS_ONE_CARD):
+            back = min(lo, P.sharded.LOOKBACK)
+            part = corpus_t[lo - back:hi].clone()
+            parts.append((part, back))
+            seg_k = TW.filter_words_count(part, masks, back)
+            seg_p = TW.filter_words_plain(part, masks, back)[0]
+            inside = int(((pos_p >= lo) & (pos_p < hi)).sum())
+            err = max(err, int((seg_k.long() - seg_p.long()).abs().max()),
+                      abs(int(seg_k.long().sum()) - inside))
+        check(err == 0, f"{kind}: kernel 7 at {n} bytes (count, list, "
+              f"{SHARDS_ONE_CARD} segments) != plain version")
+        log(f"kernel check 7 {kind} at {n} bytes: {total} candidates; "
+            f"count, list and {SHARDS_ONE_CARD} shard segments == plain: "
+            "exact")
+        out["err"]["words"] = max(out["err"]["words"], err)
+        del pos_k, words_k, cnt_p, pos_p, words_p
+        out[kind] = {
+            "candidates": total,
+            "count": dict(
+                ms=cuda_ms(torch, lambda: TW.filter_words_count(
+                    corpus_t, masks), 10),
+                plain_ms=plain_ms, library_ms=None,
+                **bound(n + n_cells * 4 + M * W * 1024, n * M * W)),
+            "count_4_segments": dict(ms=cuda_ms(torch, lambda: [
+                TW.filter_words_count(p, masks, s) for p, s in parts], 10)),
+            "list": dict(
+                ms=cuda_ms(torch, lambda: TW.filter_words_list(
+                    corpus_t, masks, cnt, max(1, total)), 10),
+                plain_ms=plain_ms, library_ms=None,
+                **bound(n + n_cells * 4 + total * (1 + W) * 4,
+                        n * M * W + total * M * W)),
+        }
+        if total:
+            # the compaction's yardstick: torch.nonzero over the
+            # candidate plane
+            pos_k = TW.filter_words_list(corpus_t, masks, cnt, total)[0]
+            cand = torch.zeros(n, dtype=torch.uint8, device=DEVICE)
+            cand[pos_k.long()] = 1
+            out[kind]["list"]["nonzero_ms"] = cuda_ms(
+                torch, lambda: torch.nonzero(cand), 5)
+            del cand
+        del parts, corpus_t
+    eng = edbs["bounded_dfa"][0].engines[0]
+    tabs = DK.device_tables(eng, DEVICE)
+    data, lengths = sh["data"]
+    d_t = torch.from_numpy(data).to(DEVICE)
+    l_t = torch.from_numpy(lengths).to(DEVICE)
+    args = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
+            int(eng.start_state), d_t, l_t)
+    n = d_t.numel()
+    a_k, f_k = D.dfa_scan_batch(*args)
+    a_p, f_p = D.dfa_scan_batch_plain(*args)
+    err = max(int((a_k - a_p).abs().max()), int((f_k - f_p).abs().max()))
+    check(err == 0, f"chained dfa_scan_batch over {data.shape[0]} x "
+          f"{data.shape[1]} rows != plain version")
+    log(f"kernel check dfa_scan_batch: {data.shape[0]} x {data.shape[1]} "
+        f"rows, {int((a_p != 0).sum())} accepts: exact")
+    out["err"]["dfa_batch"] = err
+    del a_k, f_k, a_p, f_p
+    out["dfa_batch"] = dict(
+        ms=cuda_ms(torch, lambda: D.dfa_scan_batch(*args), 5),
+        plain_ms=cuda_ms(torch, lambda: D.dfa_scan_batch_plain(*args), 1),
+        library_ms=None, launches_per_call=-(-data.shape[1] // DK.CHUNK),
+        # the bytes read, the int32 accept plane written; three lookups a
+        # byte (b2c, trans, accept)
+        **bound(n + 4 * n + tabs.nbytes + 8 * data.shape[0], 3 * n))
+    return out
+
+
 # --- the main path -----------------------------------------------------------
 
 
@@ -1089,6 +1499,10 @@ def main() -> int:
     fdb = flood_db(ht)
     ferr = family_kernel_checks(torch, T, dbs[10_000], fdb)
 
+    # phase 2d: kernel 7 and the chained batch DFA scan at 16 MB
+    merr = multi_kernel_checks(torch, T, dbs[10_000], edbs)
+    err_c = max(err_c, merr["dfa_batch"])
+
     # phase 3: the main path under the default family choice: 10k
     # ruleset, 512 MB, both corpus kinds; then the flood database
     db = dbs[10_000]
@@ -1144,6 +1558,49 @@ def main() -> int:
             f"-> {ENGINE_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
             f"the corpus inside the timed loop) [{card}]")
 
+    # phase 3d: the multi-device path at full width, on the visible
+    # cards and on four shards of one card
+    sh = sharded_path(torch, ht, T, db, runs, edbs, ecorpus)
+    mlaunch = sh["launches"]
+    log(f"sharded-path launches: {mlaunch}; literal families: "
+        f"{sh['families']}")
+    for k in ("teddy_words_count", "teddy_words_list", "dfa_scan"):
+        check(mlaunch[k] > 0, f"kernel {k} was not launched on the sharded "
+              "path")
+    filters = {"gated": "teddy_rescan_rows", "compact": "teddy_filter_compact",
+               "kconfirm": "teddy_kconfirm", "dense": "teddy_filter_plane"}
+    check(sh["families"] and all(mlaunch[filters[f]] > 0
+                                 for f in sh["families"]),
+          f"the sharded literal path's families {sh['families']} did not "
+          "launch their filter kernels")
+    sharded_checks(torch, ht, T, db, edbs, sh)
+    for kind, (r, blocks) in sh["lit"].items():
+        log(f"teddy_scan {kind}: {r['total']} candidates in "
+            f"{r['teddy_scan_s']:.3f} s (upload included) [{card}]")
+        times = r["unsharded_times"]
+        log(f"unsharded {kind} over {len(blocks)} blocks: timed scans "
+            f"{[round(t, 4) for t in times]} s -> "
+            f"{MAIN_BYTES / (sum(times) / len(times)) / 1e9:.3f} GB/s end "
+            f"to end [{card}]")
+        for name in sh["meshes"]:
+            cnt, cnt_s = r["counts"][name]
+            lists, times = r["lists"][name]
+            mean = sum(times) / len(times)
+            log(f"sharded {kind} on {name}: sharded_teddy_count {cnt} in "
+                f"{cnt_s:.3f} s; scan_batch(mesh=) over {len(blocks)} "
+                f"blocks: {sum(map(len, lists))} matches, timed scans "
+                f"{[round(t, 4) for t in times]} s -> "
+                f"{MAIN_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
+                f"the corpus inside the timed loop) [{card}]")
+            log(f"sharded {kind} on {name} stage seconds [{card}]: "
+                + json.dumps({k: round(v, 6)
+                              for k, v in r["stages"][name].items()}))
+    for name, (cnt, _mt, t_c, t_m) in sh["dfa"].items():
+        log(f"sharded DFA on {name}: sharded_scan_counts {cnt} in "
+            f"{t_c:.3f} s, sharded_scan_matches in {t_m:.3f} s "
+            f"({ENGINE_BYTES / t_c / 1e9:.3f} / {ENGINE_BYTES / t_m / 1e9:.3f}"
+            f" GB/s, upload included) [{card}]")
+
     # phase 4: per-kernel times at the main path's shapes
     kt = {}
     for kind, (corpus, _out, _w, _t) in runs.items():
@@ -1179,6 +1636,12 @@ def main() -> int:
             + json.dumps(ft_[kind], sort_keys=True))
         for k, e in ft_[kind]["err"].items():
             ferr[k] = max(ferr[k], e)
+    # phase 4d: kernel 7 and the chained batch DFA scan
+    mkt = multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh, clock_hz)
+    log(f"multi-device kernel times [{card}]: "
+        + json.dumps(mkt, sort_keys=True))
+    merr["words"] = max(merr["words"], mkt["err"]["words"])
+    err_c = max(err_c, mkt["err"]["dfa_batch"])
     log("forced-family GB/s [" + card + "]: " + json.dumps(
         {f"{k} {f}": round(v["gb_s"], 4) for (k, f), v in forced.items()}))
     c = ekt[("bounded_dfa", "one_block")]
@@ -1212,7 +1675,8 @@ def main() -> int:
         {"name": "dfa_scan", "route": "cuda",
          "source": "hyperscan_tpu_torch/csrc/dfa_scan.cu",
          "replaces": "hyperscan_tpu/ops/dfa_kernel.py:132",
-         "launches": elaunch["dfa_scan"], "max_abs_err": err_c,
+         "launches": elaunch["dfa_scan"] + mlaunch["dfa_scan"],
+         "max_abs_err": err_c,
          "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": None},
         {"name": "nfa_layered", "route": "cuda",
@@ -1235,6 +1699,18 @@ def main() -> int:
               "hyperscan_tpu/ops/teddy.py:793", ferr["extract"],
               fr["extract"]),
     ]
+    for name, replaces, mode in (
+            ("teddy_words_count", "hyperscan_tpu/parallel/sharded.py:237",
+             "count"),
+            ("teddy_words_list", "hyperscan_tpu/ops/teddy.py:762", "list")):
+        t = mkt["iid"][mode]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "hyperscan_tpu_torch/csrc/teddy_words.cu",
+            "replaces": replaces, "launches": mlaunch[name],
+            "max_abs_err": merr["words"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,12 @@
 // (c, t, accept id). The chunk's final state is the state after its last
 // live position, its entry when none is live. Records go out through one
 // atomic counter into a `cap` buffer; the counter keeps the exact total
-// past cap.
+// past cap. In plane mode (a non-null `plane`, an int32 array as long as the
+// corpus) a record is written instead as plane[start + t] = accept id, which
+// is the dense accept plane of the lockstep batch scan
+// (hyperscan_tpu/ops/dfa.py:27 dfa_scan_batch, an XLA lax.scan in the
+// reference): ops/dfa.py launches this kernel once per 512 bytes of its rows
+// with H = 0, each launch entering in the finals of the one before.
 //
 // What bounds it. Each chunk step is a chain of two dependent lookups
 // (b2c, then trans) plus the accept lookup, and the halo of H bytes is
@@ -70,7 +75,8 @@ dfa_scan_kernel(const uint8_t* __restrict__ corpus, long long n,
                 const int32_t* __restrict__ b2c,
                 const int32_t* __restrict__ accept, int S, int C, int H,
                 int32_t* __restrict__ recs, int cap,
-                int32_t* __restrict__ total, int32_t* __restrict__ finals) {
+                int32_t* __restrict__ total, int32_t* __restrict__ finals,
+                int32_t* __restrict__ plane) {
   extern __shared__ int32_t smem[];
   uint32_t* s_stage = reinterpret_cast<uint32_t*>(smem);  // [kThreads][37]
   int32_t* s_b2c = smem + kStageWords;                    // [256]
@@ -122,6 +128,10 @@ dfa_scan_kernel(const uint8_t* __restrict__ corpus, long long n,
         state = kShared ? s_trans[idx] : __ldg(trans + idx);
         if (t >= H) aid = kShared ? s_acc[state] : __ldg(accept + state);
       }
+      if (plane != nullptr) {  // uniform across the grid
+        if (aid != 0) plane[start + t] = aid;
+        continue;
+      }
       const unsigned hits = __ballot_sync(0xffffffffu, aid != 0);
       if (hits) {
         int r0 = 0;
@@ -146,7 +156,7 @@ cudaError_t launch(const uint8_t* corpus, long long n, const int4* meta,
                    int nch, const int32_t* trans, const int32_t* b2c,
                    const int32_t* accept, int S, int C, int H, int32_t* recs,
                    int cap, int32_t* total, int32_t* finals,
-                   cudaStream_t stream) {
+                   int32_t* plane, cudaStream_t stream) {
   const size_t smem =
       size_t(kStageWords + 256) * 4 +
       (kShared ? (size_t(S) * C + size_t(S)) * 4 : 0);
@@ -159,17 +169,20 @@ cudaError_t launch(const uint8_t* corpus, long long n, const int4* meta,
   const int blocks = (nch + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(corpus, n, meta, nch, trans,
                                              b2c, accept, S, C, H, recs, cap,
-                                             total, finals);
+                                             total, finals, plane);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// `plane` null: records mode; otherwise plane mode (recs, cap and total are
+// not used).
 extern "C" int hs_dfa_scan(const void* corpus, long long n, const void* meta,
                            int nch, const void* trans, const void* b2c,
                            const void* accept, int S, int C, int H,
                            int shared_tables, void* recs, int cap,
-                           void* total, void* finals, void* stream) {
+                           void* total, void* finals, void* plane,
+                           void* stream) {
   if (nch <= 0) return int(cudaSuccess);
   const auto* cp = static_cast<const uint8_t*>(corpus);
   const auto* mp = static_cast<const int4*>(meta);
@@ -179,12 +192,13 @@ extern "C" int hs_dfa_scan(const void* corpus, long long n, const void* meta,
   auto* rp = static_cast<int32_t*>(recs);
   auto* np = static_cast<int32_t*>(total);
   auto* fp = static_cast<int32_t*>(finals);
+  auto* pp = static_cast<int32_t*>(plane);
   auto s = static_cast<cudaStream_t>(stream);
   return int(shared_tables
                  ? launch<true>(cp, n, mp, nch, tp, bp, ap, S, C, H, rp, cap,
-                                np, fp, s)
+                                np, fp, pp, s)
                  : launch<false>(cp, n, mp, nch, tp, bp, ap, S, C, H, rp,
-                                 cap, np, fp, s));
+                                 cap, np, fp, pp, s));
 }
 
 extern "C" const char* hs_dfa_scan_error(int code) {

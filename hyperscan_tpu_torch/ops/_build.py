@@ -35,7 +35,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES = {"teddy_filter_compact": 0, "teddy_hash_confirm": 0,
             "dfa_scan": 0, "nfa_layered": 0, "teddy_gate": 0,
             "teddy_rescan_rows": 0, "teddy_kconfirm": 0,
-            "teddy_filter_plane": 0, "plane_extract": 0}
+            "teddy_filter_plane": 0, "plane_extract": 0,
+            "teddy_words_count": 0, "teddy_words_list": 0}
 
 
 def reset_launches() -> None:

@@ -277,12 +277,15 @@ def _observe_finish(handle: ConfirmHandle, meta: Sequence[int]) -> bool:
 def confirm_fetch_many(handles: Sequence[ConfirmHandle]) -> List[np.ndarray]:
     """Fetch several started scans' meta and pair buffers in ONE
     device->host copy (reference: teddy_confirm_fetch_many,
-    hyperscan_tpu/ops/teddy.py:2014). Returns one int64 array per handle
-    to pass to `confirm_finish(handle, got=...)`; scans whose outputs
-    overflowed are dispatched again by that call."""
+    hyperscan_tpu/ops/teddy.py:2014). Handles on several devices are
+    gathered on the first handle's device before the copy. Returns one
+    int64 array per handle to pass to `confirm_finish(handle, got=...)`;
+    scans whose outputs overflowed are dispatched again by that call."""
     if not handles:
         return []
-    parts = [t for h in handles for t in (h.meta, h.pairs.reshape(-1).long())]
+    dev = handles[0].meta.device
+    parts = [t.to(dev) for h in handles
+             for t in (h.meta, h.pairs.reshape(-1).long())]
     flat = torch.cat(parts).cpu().numpy()
     out, off = [], 0
     for h in handles:

@@ -1,0 +1,10 @@
+from .sharded import (  # noqa: F401
+    SHARD_AXIS,
+    Mesh,
+    make_mesh,
+    make_multihost_mesh,
+    pad_batch_for_mesh,
+    sharded_scan_counts,
+    sharded_scan_matches,
+    sharded_teddy_count,
+)

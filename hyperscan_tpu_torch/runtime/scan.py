@@ -226,9 +226,28 @@ def resolve_device(device) -> "torch.device":
     return dev
 
 
+def mesh_device(mesh, device) -> "torch.device":
+    """The device a scan with `mesh` runs its unsharded half on: the
+    mesh's first. An explicit `device` other than that one raises."""
+    import torch
+
+    from ..parallel.sharded import _as_shard_mesh
+
+    first = _as_shard_mesh(mesh).first
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type != first.type or (
+                None not in (dev.index, first.index)
+                and dev.index != first.index):
+            raise InvalidError(
+                f"device {str(dev)!r} differs from the mesh's first device "
+                f"{str(first)!r}: with a mesh, leave device unset")
+    return first
+
+
 def scan_blocks_raw(
     db: Database, blocks: Sequence[bytes], capacity: int, mesh=None,
-    device="cuda",
+    device=None,
 ) -> List[RecordBatch]:
     """Scan a batch of independent blocks; returns per-block RecordBatch
     of internal (expr_index, to, from) records (pre report-processing),
@@ -237,31 +256,60 @@ def scan_blocks_raw(
     scans of ops.dfa_kernel and ops.nfa_kernel).
 
     Above the database's `host_scan_limit` the blocks are concatenated
-    into one flat corpus, uploaded once to the torch `device`, and both
-    the literal pipeline and the general engines scan that tensor; below
-    it everything runs on the host. `mesh` (multi-GPU sharding, ROADMAP
-    queue 1, item 8) is not ported yet and raises."""
+    into one flat corpus, uploaded once to the torch `device` (the card
+    when None), and both the literal pipeline and the general engines
+    scan that tensor; below it everything runs on the host.
+
+    With `mesh` (parallel.sharded.Mesh), a literal database over more
+    than 64 KiB of blocks shards its literal pipeline across the mesh
+    (`sharded_literal_confirm`), and the host stages run per shard group;
+    everything else runs on the mesh's first device (`mesh_device`), and
+    the engines then scan without literal prefilter gating (reference:
+    hyperscan_tpu/runtime/scan.py:246-266)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= sharding is not ported yet (ROADMAP queue 1, item 8: "
-            "multi-GPU on torch.distributed)")
+        device = mesh_device(mesh, device)
+    elif device is None:
+        device = "cuda"
     B = len(blocks)
     per_block: List[RecordSink] = [RecordSink() for _ in range(B)]
     from ..ops.teddy import corpus_tensor, flatten_blocks
     from .smallwrite import HOST_SCAN_LIMIT
 
     corpus, starts, lens = flatten_blocks(blocks)
+    sharded = (db.lit is not None and mesh is not None
+               and corpus.shape[0] > 1 << 16)
     on_device = corpus.shape[0] > getattr(db, "host_scan_limit",
                                           HOST_SCAN_LIMIT)
-    corpus_t = corpus_tensor(corpus, device) if on_device else None
+    corpus_t = (corpus_tensor(corpus, device)
+                if on_device and (db.engines or not sharded) else None)
 
     # literal path: Teddy filter over the concatenated corpus, then
     # confirm + window validation (reference: Rose floating literal
     # matcher path, src/rose/block.c roseBlockFloating)
-    prefilter_hits: dict = {}
-    if db.lit is not None:
+    if sharded:
+        from ..parallel.sharded import sharded_literal_confirm
+        from .lit_runtime import finish_confirmed, verify_pairs
+
+        for (g, fid_a, p_a, corpus_d, starts_d, ends_d) in \
+                sharded_literal_confirm(db.lit, blocks, mesh, capacity,
+                                        flat=(corpus, starts, lens)):
+            if not len(g):
+                continue
+            fid_a, p_a = verify_pairs(db.lit, corpus_d, starts_d, fid_a, p_a)
+            rng: List[Tuple[int, int, int, int]] = []
+            recs = finish_confirmed(db, corpus_d, starts_d, ends_d, fid_a,
+                                    p_a, ranges_out=rng)
+            for (bi_local, eidx, to, frm) in recs:
+                per_block[g[bi_local]].add(eidx, to, frm)
+            for (bi_local, eidx, lo, hi) in rng:
+                per_block[g[bi_local]].add_range(eidx, lo, hi)
+    # engine prefilter hits: None when the literal half did not collect
+    # them (sharded), and the engines then scan every block
+    prefilter_hits: Optional[dict] = None
+    if db.lit is not None and not sharded:
         from .lit_runtime import scan_literal_path
 
+        prefilter_hits = {}
         rng = []
         for (bi, eidx, to, frm) in scan_literal_path(
             db, corpus, starts, starts + lens,
@@ -291,7 +339,8 @@ def _device_engine_scan(db, blocks, corpus, corpus_t, starts, lens,
     speculative NFA scan, all over the uploaded corpus `corpus_t`; SOM,
     LBR and other NFA engines scan on the host. An engine whose every
     expression is literal-prefilter gated scans only the blocks where
-    one of its mandatory factors hit."""
+    one of its mandatory factors hit (`prefilter_hits`; None when the
+    literal half did not collect them, and then every block)."""
     from ..database import MAX_HALO_DEPTH, LbrEngine, NfaEngine, SomEngine
     from ..ops import dfa_kernel as DK
     from ..ops.nfa_kernel import nfa_device_eligible, nfa_scan_corpus
@@ -299,7 +348,8 @@ def _device_engine_scan(db, blocks, corpus, corpus_t, starts, lens,
 
     B = len(blocks)
     limit = getattr(db, "host_scan_limit", HOST_SCAN_LIMIT)
-    pre_eids = (_lit_prefilter_eids(db.lit) if db.lit is not None
+    pre_eids = (_lit_prefilter_eids(db.lit)
+                if db.lit is not None and prefilter_hits is not None
                 else frozenset())
     host_engines = []  # (engine, sel)
 
@@ -881,7 +931,7 @@ def scan_batch(
     scratch: Optional[Scratch] = None,
     mesh=None,
     threads: int = 1,
-    device="cuda",
+    device=None,
 ) -> List[List[Match]]:
     """Batched block scan: the blocks are concatenated into one flat
     corpus that the device filters in one dispatch (reference's per-core
@@ -889,7 +939,11 @@ def scan_batch(
     partitions the batch across host threads — the hsbench `-T` analogue
     (reference: one scratch per thread, hs_runtime.h:555-576); the native
     C scans release the GIL, so host-path batches scale with cores.
-    `mesh` (multi-GPU sharding) is not ported yet and raises."""
+    `device` is where the scan runs: the card ("cuda") when None.
+    `mesh` (a `parallel.Mesh`) shards the literal pipeline across its
+    devices (see scan_blocks_raw); the scan then runs on the mesh's
+    devices, and an explicit `device` other than the mesh's first raises
+    InvalidError."""
     if base_mode(db.mode) != HS_MODE_BLOCK:
         raise DbModeError("database not compiled for block mode")
     if threads > 1 and mesh is not None:
@@ -897,7 +951,9 @@ def scan_batch(
             "threads and mesh are exclusive: a mesh already partitions "
             "the batch across chips (one dispatching host thread); use "
             "threads only for host-path scans")
-    device = resolve_device(device)
+    if mesh is not None:
+        device = mesh_device(mesh, device)
+    device = resolve_device("cuda" if device is None else device)
     scratch = scratch or Scratch()
     blocks = [bytes(b) for b in blocks]
     if threads > 1 and mesh is None and len(blocks) > 1:

@@ -325,3 +325,115 @@ def test_scan_each_family_on_card_counts_launches(card, family):
     assert all(T.LAUNCHES[k] == 0 for k in others)
     assert got == ht.scan(db, data, device="cpu")
     assert len(got) >= 50
+
+
+# --- the multi-device path: kernel 7 (teddy_words), the chained kernel-C
+# --- batch scan, and a 4-shard mesh on one card ----------------------------
+
+from hyperscan_tpu_torch import parallel as P  # noqa: E402
+from hyperscan_tpu_torch.ops import dfa as D  # noqa: E402
+from hyperscan_tpu_torch.ops import match as MT  # noqa: E402
+from hyperscan_tpu_torch.ops import teddy_words as TW  # noqa: E402
+
+WORD_PATS = (["attack%d" % i for i in range(300)]  # W = 2 words
+             + [r"\x00\x00ab%d" % i for i in range(5)]
+             + [r"\xff\xfezz%d" % i for i in range(5)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 13, 65536 + 7, 100, 1, 0])
+def test_teddy_words_kernel_equals_plain(card, n):
+    db = ht.compile_multi(WORD_PATS, ids=list(range(len(WORD_PATS))))
+    masks = TW.masks_tensor(db.lit.masks, card)
+    c = _corpus(n, 8)
+    for off in range(0, n - 9, 1001):
+        c[off:off + 8] = np.frombuffer(b"attack%02d" % (off % 97), np.uint8)
+    corpus = torch.from_numpy(c).to(card)
+    for start in sorted({0, min(n, 7), n // 2}):
+        cnt_p, pos_p, words_p = TW.filter_words_plain(corpus, masks, start)
+        cnt_k = TW.filter_words_count(corpus, masks, start)
+        assert torch.equal(cnt_k, cnt_p)
+        total = pos_p.numel()
+        for cap in (total + 5, max(1, total // 3)):
+            pos_k, words_k = TW.filter_words_list(corpus, masks, cnt_k, cap,
+                                                  start)
+            k = min(cap, total)
+            assert torch.equal(pos_k[:k], pos_p[:k])
+            assert torch.equal(words_k[:, :k], words_p[:, :k])
+            assert not pos_k[k:].any() and not words_k[:, k:].any()
+        if n > 1000 and start == 0:
+            assert total > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", ["scalar", "rows"])
+def test_chained_dfa_scan_batch_equals_plain(card, init):
+    eng = _dfa_engine([r"ab[cd]{2,6}ef", r"[0-9]{3}-[0-9]{4}",
+                       r"GET /[a-z]{1,12} "])
+    blocks = _engine_blocks(9, [1100] * 40 + [0, 1, 511, 512, 513])
+    B, L = len(blocks), 1100
+    data = np.zeros((B, L), np.uint8)
+    lengths = np.zeros(B, np.int32)
+    for i, b in enumerate(blocks):
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lengths[i] = len(b)
+    tabs = DK.device_tables(eng, card)
+    init_state = (eng.start_state if init == "scalar" else torch.from_numpy(
+        np.random.default_rng(3).integers(0, eng.num_states, B)
+        .astype(np.int32)).to(card))
+    d_t = torch.from_numpy(data).to(card)
+    l_t = torch.from_numpy(lengths).to(card)
+    args = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
+            init_state, d_t, l_t)
+    T.reset_launches()
+    a_k, f_k = D.dfa_scan_batch(*args)
+    assert T.LAUNCHES["dfa_scan"] == 3  # ceil(1100 / 512)
+    a_p, f_p = D.dfa_scan_batch_plain(*args)
+    assert torch.equal(a_k, a_p) and torch.equal(f_k, f_p)
+    assert int(MT.count_matches(a_k)) > 20
+
+
+def _one_card_meshes(card):
+    return (P.Mesh([card], ("d",)),
+            P.Mesh(np.array([card] * 4, dtype=object).reshape(2, 2),
+                   ("x", "y")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 13, 4 * 65536, 4 * 65536 + 1,
+                               100])
+def test_four_shards_on_one_card_equal_one_shard(card, n):
+    db = ht.compile_multi(WORD_PATS, ids=list(range(len(WORD_PATS))))
+    c = _corpus(n, 10)
+    for off in range(0, n - 9, 1001):
+        c[off:off + 8] = np.frombuffer(b"attack%02d" % (off % 97), np.uint8)
+    one, four = _one_card_meshes(card)
+    T.reset_launches()
+    got1 = P.sharded_teddy_count(c, db.lit.masks, one)
+    got4 = P.sharded_teddy_count(c, db.lit.masks, four)
+    shards = sum(hi > lo for lo, hi in P.sharded.segments(n, 4))
+    assert T.LAUNCHES["teddy_words_count"] == 1 + shards
+    total, _pos, _w = TW.teddy_scan(c, db.lit.masks)
+    assert got1 == got4 == total
+    assert T.LAUNCHES["teddy_words_list"] == 1
+
+
+@pytest.mark.cuda
+def test_sharded_scans_on_one_card(card):
+    one, four = _one_card_meshes(card)
+    blocks = [_gated_corpus(s, s).tobytes()
+              for s in (70_001, 5, 120_000, 65_536, 33_333, 1, 90_000)]
+    db = compile_patterns(GATED_PATS, ids=list(range(len(GATED_PATS))))
+    want = ht.scan_batch(db, blocks)
+    assert ht.scan_batch(db, blocks, mesh=one) == want
+    assert ht.scan_batch(db, blocks, mesh=four) == want
+    assert sum(map(len, want)) >= 50
+    eng = _dfa_engine([r"ab[cd]{2,6}ef", r"[0-9]{3}-[0-9]{4}"])
+    eblocks = _engine_blocks(11, [1000] * 30 + [0, 513])
+    data, lengths = P.pad_batch_for_mesh(eblocks, four, pad_len=1100)
+    c1 = P.sharded_scan_counts(eng, data, lengths, one)
+    assert c1 == P.sharded_scan_counts(eng, data, lengths, four) > 5
+    m1 = P.sharded_scan_matches(eng, data, lengths, one, capacity=512)
+    m4 = P.sharded_scan_matches(eng, data, lengths, four, capacity=512)
+    assert int(m1[0].sum()) == int(m4[0].sum()) == c1
+    assert m4[4].shape == (4, data.shape[0] // 4)

@@ -138,7 +138,10 @@ def test_cuda_device_without_card_raises():
 
 def test_engine_scan_above_host_limit_raises():
     """Above host_scan_limit an engine database scans on the device path
-    and equals the reference; only mesh= sharding still raises."""
+    and equals the reference, also with a mesh (the engine half then runs
+    on the mesh's first device); a mesh that is not a Mesh raises."""
+    from hyperscan_tpu_torch.parallel import make_mesh
+
     pats = [r"[0-9]{3}-[0-9]{4}"]
     port = port_compile(pats, grey=PortGrey(host_scan_limit=0))
     ref = ref_compile(pats, [0], [0], grey=RefGrey(host_scan_limit=0))
@@ -146,5 +149,8 @@ def test_engine_scan_above_host_limit_raises():
     data = b"call 555-1212 or 555-12345 now"
     assert ht.scan(port, data, device="cpu") == hs.scan(ref, data)
     assert len(hs.scan(ref, data)) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    blocks = [data, b"555-1212", data[5:]]
+    assert ht.scan_batch(port, blocks, mesh=make_mesh(2, device="cpu")) \
+        == hs.scan_batch(ref, blocks)
+    with pytest.raises(TypeError, match="Mesh"):
         ht.scan_batch(port, [b"555-1212"], mesh=object(), device="cpu")
