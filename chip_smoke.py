@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero:
    structured and iid, also at an unaligned length with a look-back head;
    its candidates must equal kernel A's; and dfa_scan_batch (kernel C
    chained in plane mode) on a bounded-DFA batch of 1,024 x 16 KiB rows.
-   Tolerance: exact (every value is an integer).
+   Then (2e) kernel 4's stage modes 0-2 (row 11) on the 10k ruleset at
+   16 MB, structured and iid; stage 3's counts must equal stage 0's and
+   stage 2's. Tolerance: exact (every value is an integer).
 3. The literal path at full size, under the port's default family
    choice: `scan_batch` with the 10k ruleset over a 512 MB corpus,
    structured and iid, and the flood database over 256 KiB. The planted
@@ -53,7 +55,26 @@ Phases, in order; any failure exits non-zero:
    sharded_scan_matches with the bounded DFA over 16,384 x 16 KiB (equal
    to the unsharded dfa_scan_batch + extract_matches); kernel 7, kernel C
    and the filter kernel of the family that each shard ran (the literal
-   path's own family choice) must have been launched.
+   path's own family choice) must have been launched. Streaming at full
+   width (3e): the 10k ruleset in stream mode through a StreamSet of
+   16,384 streams x 8 KiB writes (extents made on the host from the
+   JAX package's stream-bench formula, uploaded inside the timed loop,
+   rounds pipelined: start all, one confirm_fetch_many, finish in
+   order; one warm and two timed passes of 6 rounds), scan_streams over
+   1,024 streams x 8 KiB and over 16 streams on the host path, the
+   bounded DFA in stream mode over 1,024 streams x 16 KiB x 8 rounds
+   (kernel C entered in carried states), and scan_streams(mesh=) on both
+   meshes. The first 64 streams of each equal the port's host path and
+   the block scan of their concatenated writes, the sharded writes equal
+   the unsharded, every planted match is found, and the filter kernel of
+   each family that ran and dfa_scan must have been launched. The path's
+   kernels at the path's inputs: the kernels of the family that ran the
+   last timed StreamSet round, on that round's extent tensor and
+   capacities, against their plain versions (and its pair total equal to
+   the round's); kernel C on every round of the bounded-DFA streams,
+   entered in the streams' carried states, against its plain version
+   (records, finals, and finals equal to the states the streams carried
+   out). Exact; their errors join the kernels' `max_abs_err`.
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
    and per-kernel times at the main paths' shapes, beside their bounds
    and their plain versions' times (and torch.nonzero's beside the
@@ -63,7 +84,11 @@ Phases, in order; any failure exits non-zero:
    modes over the 512 MB corpora (count mode also over four shard
    segments, row 8's shape) and the chained dfa_scan_batch over
    16,384 x 16 KiB, beside their bounds and plain versions; at these
-   shapes too each equals its plain version (exact).
+   shapes too each equals its plain version (exact). (4e) The stage probe
+   (hyperscan_tpu_torch/tools/kconf_probe.py) at 512 MB iid: kernel A's
+   plane mode, kernel 4's stages 0-3, stage 3 + kconf_combine and the
+   kconfirm family end to end; stages 0-2 against their plain versions
+   there too (exact).
 5. One JSON line listing every kernel, the card's name and power limit
    as nvidia-smi reports them, and the final status line.
 
@@ -72,6 +97,7 @@ Imports nothing of JAX nor of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -102,65 +128,10 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError("check failed: " + msg)
 
 
-# --- the bench rulesets and corpora (the generator of bench.py) ------------
+# --- the bench rulesets and corpora (the generator of bench.py, copied) -----
 
-WORDS = ["attack", "payload", "shell", "admin", "select", "union", "eval",
-         "script", "passwd", "cookie", "token", "login", "root", "exec"]
-
-PLANTS = [b"attack0 ", b"payload16y99z!", b"x12GET /abc ", b"q8hdeadbeef ",
-          b"v4.exe ", b"union55 ", b"shell2222 ",
-          b"gate5xabcdabunion5end ", b"gate11xlogin11end "]
-PLANT_AT = 128
-
-
-def patterns(n: int):
-    """Snort-flavored patterns, all carrying bounded literal factors."""
-    pats, ids = [], []
-    for i in range(n):
-        k = i % 6
-        w = WORDS[i % len(WORDS)]
-        if k == 0:
-            pats.append(w + str(i))
-        elif k == 1:
-            pats.append(rf"{w}{i}[0-9]{{2,4}}z")
-        elif k == 2:
-            pats.append(rf"x{i}(GET|POST|PUT) /[a-z]{{1,20}}")
-        elif k == 3:
-            pats.append(rf"q{i}h[a-f0-9]{{8}}")
-        elif k == 4:
-            pats.append(rf"v{i}\.(exe|dll|bat)")
-        else:
-            pats.append(rf"gate{i}x(ab|cd)*{w}{i}end")
-        ids.append(i)
-    return pats, ids
-
-
-def plant_region() -> np.ndarray:
-    """4 KiB holding every planted match, spliced at offset 128."""
-    region = np.full(4096, ord(" "), dtype=np.uint8)
-    off = 16
-    for k in range(len(PLANTS) * 4):
-        p = PLANTS[k % len(PLANTS)]
-        region[off:off + len(p)] = np.frombuffer(p, np.uint8)
-        off += len(p) + 97
-    return region
-
-
-def gen_corpus(n: int, salt: int, kind: str) -> np.ndarray:
-    """kind="structured": a multiplicative-hash progression (low filter
-    candidate rate); kind="iid": one more xorshift-multiply round, iid-like
-    printable noise (the adversarial candidate rate)."""
-    v = np.arange(n, dtype=np.uint32)
-    v += np.uint32(salt * 1_000_003)
-    v *= np.uint32(2654435761)
-    if kind == "iid":
-        v ^= v >> np.uint32(15)
-        v *= np.uint32(2246822519)
-    v >>= np.uint32(16)
-    lut = (32 + np.arange(65536, dtype=np.uint32) % 95).astype(np.uint8)
-    corpus = lut[v]
-    corpus[PLANT_AT:PLANT_AT + 4096] = plant_region()
-    return corpus
+from hyperscan_tpu_torch.tools.benchdata import (  # noqa: E402
+    PLANT_AT, PLANTS, gen_corpus, patterns)
 
 
 # --- card queries and timing -------------------------------------------------
@@ -1289,6 +1260,508 @@ def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
     return out
 
 
+# --- kernel 4's stage modes (row 11) ------------------------------------------
+
+
+def stage_kernel_checks(torch, T, db) -> int:
+    """Phase 2e: kernel 4's stage modes 0-2 against their plain versions at
+    16 MB, structured and iid (candidate counts, checksums, match counts;
+    exact); stage 3's candidate counts equal stage 0's and stage 2's, and
+    its match counts stage 2's. Returns the max abs error."""
+    from hyperscan_tpu_torch.ops import teddy_kconfirm as K
+
+    ft, _ct = T.device_tables(db.lit, DEVICE)
+    kt = K.confirm_planes(db.lit, DEVICE)
+    uc = ft.cmasks is not None
+    err = 0
+    for kind in ("structured", "iid"):
+        corpus_t = torch.from_numpy(gen_corpus(CHECK_BYTES, 2, kind)).to(
+            DEVICE)
+        full = K.filter_kconfirm(corpus_t, ft, kt, use_classes=uc)
+        got = {}
+        for stage in (0, 1, 2):
+            k = K.filter_kconfirm(corpus_t, ft, kt, use_classes=uc,
+                                  stage=stage)
+            p = K.filter_kconfirm_stage_plain(corpus_t, ft, kt,
+                                              use_classes=uc, stage=stage)
+            e = max(int((a.long() - b.long()).abs().max()) for a, b in
+                    zip(k, p))
+            err = max(err, e)
+            check(e == 0, f"kernel 4 stage {stage} {kind} != plain version")
+            got[stage] = k
+        check(torch.equal(full[0], got[0][0])
+              and torch.equal(full[0], got[2][0])
+              and torch.equal(full[1], got[2][2]),
+              f"{kind}: stage 3's counts != stage 0's and stage 2's")
+        log(f"kernel check 4 stages {kind}: candidates "
+            f"{int(got[0][0].long().sum())}, matches "
+            f"{int(got[2][2].long().sum())}; stages 0-2 == plain, stage 3's "
+            "counts == stage 0's and 2's: exact")
+    return err
+
+
+def stage_probe_times(torch, T, db, corpus, clock_hz) -> dict:
+    """Phase 4e: the stage probe (tools/kconf_probe.stage_times) at 512 MiB
+    iid, its launch counts read right after; then stages 0-2 held against
+    their plain versions at that size (exact), their plain times, and
+    each variant's bound."""
+    from hyperscan_tpu_torch.ops import teddy_kconfirm as K
+    from hyperscan_tpu_torch.tools.kconf_probe import stage_times
+
+    T.reset_launches()
+    res = stage_times(db, corpus, 10, DEVICE)
+    res["launches"] = dict(T.LAUNCHES)
+    check(res["launches"]["teddy_kconfirm_stage"] > 0,
+          "the stage probe launched no stage mode")
+    ft, _ct = T.device_tables(db.lit, DEVICE)
+    kt = K.confirm_planes(db.lit, DEVICE)
+    uc = ft.cmasks is not None
+    corpus_t = T.corpus_tensor(corpus, DEVICE)
+    n = corpus_t.numel()
+    n_cells = T._n_cells(n)
+    lookups = n * (1 + ft.M * ft.W)
+    cand, groups = res["candidates"], len(kt.groups)
+    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
+
+    def bound(n_bytes, int_ops=0):
+        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_o = (lookups / lookups_per_s + int_ops / INT_OPS_PER_S) * 1e3
+        return {"bound_ms": max(t_b, t_o),
+                "bound_by": "operations" if t_o > t_b else "bytes"}
+
+    # per candidate and group: ~20 hash operations; stage 2 and up also
+    # one 256-byte row read and 128 signature compares
+    res["bounds"] = {
+        "D plane": bound(n + T.plane_len(n)),
+        "stage 0": bound(n + 12 * n_cells),
+        "stage 1": bound(n + 12 * n_cells, cand * groups * 20),
+        "stage 2": bound(n + cand * groups * 256 + 12 * n_cells,
+                         cand * groups * (20 + 128)),
+        "stage 3": bound(n + cand * groups * 256
+                         + n_cells * (2 + 2 * K.CAPC2) * 4,
+                         cand * groups * (20 + 128)),
+    }
+    res["err"] = 0
+    res["plain_ms"] = {}
+    for stage in (0, 1, 2):
+        k = K.filter_kconfirm(corpus_t, ft, kt, use_classes=uc, stage=stage)
+        p = K.filter_kconfirm_stage_plain(corpus_t, ft, kt, use_classes=uc,
+                                          stage=stage)
+        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+        check(e == 0, f"kernel 4 stage {stage} at {n} bytes != plain version")
+        res["err"] = max(res["err"], e)
+        res["plain_ms"][f"stage {stage}"] = cuda_ms(
+            torch, lambda: K.filter_kconfirm_stage_plain(
+                corpus_t, ft, kt, use_classes=uc, stage=stage), 1)
+    return res
+
+
+# --- streaming (runtime/stream.py, runtime/streamset.py) ----------------------
+
+STREAMS = 16_384  # the StreamSet: 16,384 streams x 8 KiB writes a round
+STREAM_WRITE = 8192
+STREAM_ROUNDS = 6  # timed rounds a pass, after two synchronous rounds
+STREAM_PASSES = 2  # timed passes, after one warm pass
+SCAN_STREAMS = 1024  # scan_streams: 1,024 streams x 8 KiB
+SCAN_ROUNDS = 4  # timed rounds, after one warm round
+HOST_STREAMS = 16  # scan_streams on the host path (bench.py:315-345)
+HOST_ROUNDS = 8
+ENGINE_STREAMS = 1024  # the bounded DFA: 1,024 streams x 16 KiB x 8 rounds
+ENGINE_WRITE = 16 * 1024
+ENGINE_ROUNDS = 8
+CHECK_STREAMS = 64  # streams held against the host path and block scans
+
+
+@contextlib.contextmanager
+def host_limit(db, limit: int):
+    """Within the block, `db` scans on the host up to `limit` bytes a
+    call (the port's host path for a differential)."""
+    old, db.host_scan_limit = db.host_scan_limit, limit
+    try:
+        yield
+    finally:
+        db.host_scan_limit = old
+
+
+def stream_writes(extents, n_streams, hist, write) -> list:
+    """Each stream's write of one round of `extents`."""
+    ext_len = hist + write
+    return [extents[i * ext_len + hist:(i + 1) * ext_len].tobytes()
+            for i in range(n_streams)]
+
+
+def streamset_pass(torch, F, SS, sdb, ext, hreq):
+    """One pass of the StreamSet: two synchronous rounds, then
+    STREAM_ROUNDS rounds pipelined: each round's extents uploaded and its
+    filter started, one confirm_fetch_many, the rounds finished in order.
+    The timed span is the pipelined rounds, uploads included. Returns the
+    per-round match lists, the seconds, the family each timed round
+    started with, the StreamSet and the last round's handle (it holds
+    that round's extent tensor)."""
+    ss = SS.open_streamset(sdb, STREAMS, device=DEVICE)
+    wl = np.full(STREAMS, STREAM_WRITE, np.int64)
+    out = []
+    for r in (0, 1):
+        h = SS.streamset_write_start(
+            sdb, ss, ext_np=ext[r], ext_t=torch.from_numpy(ext[r]).to(DEVICE),
+            hlens=np.full(STREAMS, hreq if r else 0, np.int64),
+            chunk_lens=wl)
+        out.append(SS.streamset_write_finish(sdb, ss, h))
+    hl = np.full(STREAMS, hreq, np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [SS.streamset_write_start(
+        sdb, ss, ext_np=ext[r], ext_t=torch.from_numpy(ext[r]).to(DEVICE),
+        hlens=hl, chunk_lens=wl) for r in range(2, 2 + STREAM_ROUNDS)]
+    gots = F.confirm_fetch_many([h.dev_handle for h in handles])
+    for h, got in zip(handles, gots):
+        out.append(SS.streamset_write_finish(sdb, ss, h, got=got))
+    took = time.perf_counter() - t0
+    return out, took, [h.dev_handle.family for h in handles], ss, \
+        handles[-1]
+
+
+def streamset_breakdown(torch, F, SS, sdb, ext, hreq) -> dict:
+    """Seconds of each stage of one StreamSet round (the third, after two
+    synchronous ones), the stages one by one with a synchronize after
+    each: the upload, streamset_write_start (the family's kernels
+    dispatched), the fetch, and streamset_write_finish; inside the
+    finish, confirm_finish (sort, class expansion) and verify_pairs are
+    timed again on their own, the rest is the windows, chain and dedupe
+    state and the reports."""
+    from hyperscan_tpu_torch.runtime.lit_runtime import verify_pairs
+
+    ss = SS.open_streamset(sdb, STREAMS, device=DEVICE)
+    wl = np.full(STREAMS, STREAM_WRITE, np.int64)
+    for r in (0, 1):
+        SS.scan_streamset(sdb, ss, stream_writes(
+            ext[r], STREAMS, hreq if r else 0, STREAM_WRITE))
+    out = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = now - t
+        t = now
+
+    ext_t = torch.from_numpy(ext[2]).to(DEVICE)
+    lap("upload")
+    h = SS.streamset_write_start(sdb, ss, ext_np=ext[2], ext_t=ext_t,
+                                 hlens=np.full(STREAMS, hreq, np.int64),
+                                 chunk_lens=wl)
+    lap("write_start")
+    (got,) = F.confirm_fetch_many([h.dev_handle])
+    lap("fetch")
+    SS.streamset_write_finish(sdb, ss, h, got=got)
+    lap("write_finish")
+    f, p = F.confirm_finish(h.dev_handle, got)
+    lap("of_which_confirm_finish")
+    verify_pairs(sdb.lit, h.ext_np, h.starts, f, p)
+    lap("of_which_verify_pairs")
+    return out
+
+
+def streaming_path(torch, ht, T, db, edbs, ecorpus) -> dict:
+    """Phase 3e, streaming at full width through the stream entry points,
+    with the launch counts read right after: the StreamSet (16,384 x 8 KiB
+    rounds, one warm and STREAM_PASSES timed passes), scan_streams over
+    1,024 streams (one warm and SCAN_ROUNDS timed rounds) and over 16
+    streams on the host path, the bounded DFA in stream mode (1,024 x 16
+    KiB x 8 rounds: kernel C entered in carried states), and
+    scan_streams(mesh=) over the 1,024 streams on both meshes."""
+    import gc
+
+    from hyperscan_tpu_torch import parallel as P
+    from hyperscan_tpu_torch.database import compile_patterns
+    from hyperscan_tpu_torch.grey import Grey
+    from hyperscan_tpu_torch.ops import teddy_families as F
+    from hyperscan_tpu_torch.runtime import streamset as SS
+    from hyperscan_tpu_torch.runtime.stream import history_required
+    from hyperscan_tpu_torch.tools.benchdata import stream_extents
+
+    # the 10k ruleset in stream mode: the compiler's output does not
+    # depend on the mode, so the block database's blob is loaded again
+    # with its mode set (a second compile would take about a minute)
+    t0 = time.perf_counter()
+    sdb = ht.deserialize_database(ht.serialize_database(db))
+    sdb.mode = ht.HS_MODE_STREAM
+    hreq = history_required(sdb)
+    pats, flags, grey, _k = ENGINE_SETS["bounded_dfa"]
+    edb = compile_patterns(pats, flags, mode=ht.HS_MODE_STREAM,
+                           grey=Grey(**grey))
+    ext = [stream_extents(STREAMS, STREAM_WRITE, hreq if r else 0, r)
+           for r in range(2 + STREAM_ROUNDS)]
+    sc_writes = [stream_writes(stream_extents(SCAN_STREAMS, STREAM_WRITE, 0,
+                                              r), SCAN_STREAMS, 0,
+                               STREAM_WRITE) for r in range(1 + SCAN_ROUNDS)]
+    per = ENGINE_ROUNDS * ENGINE_WRITE
+    e_writes = [[ecorpus[i * per + r * ENGINE_WRITE:
+                         i * per + (r + 1) * ENGINE_WRITE].tobytes()
+                 for i in range(ENGINE_STREAMS)] for r in range(ENGINE_ROUNDS)]
+    setup_s = time.perf_counter() - t0
+    # keep the long-lived set-up (the databases, the extents) out of the
+    # cyclic collector's scans, as the JAX package's stream bench does
+    gc.collect()
+    gc.freeze()
+    meshes = shard_meshes(torch, P)
+    before = dict(F.family_state(sdb.lit).dispatches)
+    T.reset_launches()
+    try:
+        warm, warm_s, warm_fams, _ss, _h = streamset_pass(torch, F, SS, sdb,
+                                                          ext, hreq)
+        passes = [streamset_pass(torch, F, SS, sdb, ext, hreq)
+                  for _ in range(STREAM_PASSES)]
+        round_stages = streamset_breakdown(torch, F, SS, sdb, ext, hreq)
+        # scan_streams, device path: one warm round, then timed rounds
+        streams = [ht.open_stream(sdb, device=DEVICE)
+                   for _ in range(SCAN_STREAMS)]
+        sc_out, sc_times = [], []
+        for r, w in enumerate(sc_writes):
+            t0 = time.perf_counter()
+            sc_out.append(ht.scan_streams(sdb, streams, w))
+            if r:
+                sc_times.append(time.perf_counter() - t0)
+        sc_out.append([ht.close_stream(st) for st in streams])
+        # scan_streams over 16 streams on the host path
+        with host_limit(sdb, 1 << 30):
+            hs_ = [ht.open_stream(sdb, device=DEVICE)
+                   for _ in range(HOST_STREAMS)]
+            t0 = time.perf_counter()
+            host_n = 0
+            for r in range(HOST_ROUNDS):
+                w = stream_writes(stream_extents(
+                    HOST_STREAMS, STREAM_WRITE, 0, r), HOST_STREAMS, 0,
+                    STREAM_WRITE)
+                host_n += sum(map(len, ht.scan_streams(sdb, hs_, w)))
+            host_s = time.perf_counter() - t0
+        # the bounded DFA in stream mode
+        estreams = [ht.open_stream(edb, device=DEVICE)
+                    for _ in range(ENGINE_STREAMS)]
+        e_out, e_times, e_states = [], [], []
+        for w in e_writes:
+            # the states the streams carry into the round (and, last, out
+            # of the last round): kernel C is checked at these entries
+            e_states.append(np.asarray(
+                [s_.engine_states[0] for s_ in estreams], np.int64))
+            t0 = time.perf_counter()
+            e_out.append(ht.scan_streams(edb, estreams, w))
+            e_times.append(time.perf_counter() - t0)
+        e_states.append(np.asarray([s_.engine_states[0] for s_ in estreams],
+                                   np.int64))
+        e_out.append([ht.close_stream(st) for st in estreams])
+        # scan_streams(mesh=) over the same 1,024 streams' writes
+        mesh_out = {}
+        for name, m in meshes.items():
+            ms_ = [ht.open_stream(sdb, device=DEVICE)
+                   for _ in range(SCAN_STREAMS)]
+            mesh_out[name] = [ht.scan_streams(sdb, ms_, w, mesh=m)
+                              for w in sc_writes]
+            mesh_out[name].append([ht.close_stream(st) for st in ms_])
+        launches = dict(T.LAUNCHES)
+        fams = ran_since(sdb.lit, before)
+    finally:
+        gc.unfreeze()
+    return {"sdb": sdb, "edb": edb, "hreq": hreq, "ext": ext,
+            "setup_s": setup_s, "warm": (warm, warm_s, warm_fams),
+            "passes": passes, "round_stages": round_stages,
+            "sc": (sc_out, sc_times, sc_writes),
+            "host": (host_n, host_s), "engine": (e_out, e_times, e_writes),
+            "engine_states": e_states,
+            "mesh": mesh_out, "launches": launches, "families": fams}
+
+
+def _as_set(ms) -> set:
+    return {(m[0], m[2]) for m in ms}
+
+
+def streaming_checks(ht, db, edbs, st) -> dict:
+    """Phase 3e's checks, all exact: every timed pass equals the warm
+    pass; the first CHECK_STREAMS streams of the StreamSet, of
+    scan_streams and of the bounded-DFA streams equal the port's host
+    path (host_scan_limit raised past the write total), round by round
+    and at close; each of those streams' writes, concatenated and scanned
+    as one block, gives its matches; the sharded scan_streams equal the
+    unsharded; every planted match of the StreamSet and scan_streams
+    streams is found."""
+    from hyperscan_tpu_torch.runtime import streamset as SS
+    from hyperscan_tpu_torch.tools.benchdata import stream_plants
+
+    sdb, edb, hreq = st["sdb"], st["edb"], st["hreq"]
+    warm = st["warm"][0]
+    for out, _s, _f, _ss, _h in st["passes"]:
+        check(out == warm, "a timed StreamSet pass differs from the warm "
+              "pass")
+    ss = st["passes"][-1][3]
+    ss_close = [ht.close_stream(SS.streamset_stream(ss, i))
+                for i in range(CHECK_STREAMS)]
+    writes = [stream_writes(e, CHECK_STREAMS, hreq if r else 0,
+                            STREAM_WRITE) for r, e in enumerate(st["ext"])]
+    sc_out, _t, sc_writes = st["sc"]
+    e_out, _t, e_writes = st["engine"]
+    cases = (("StreamSet", sdb, db, warm + [ss_close], writes),
+             ("scan_streams", sdb, db, sc_out, sc_writes),
+             ("bounded DFA streams", edb, edbs["bounded_dfa"][0], e_out,
+              e_writes))
+    out = {}
+    for name, d, bdb, got, wr in cases:
+        with host_limit(d, 1 << 30):
+            hs_ = [ht.open_stream(d, device=DEVICE)
+                   for _ in range(CHECK_STREAMS)]
+            host = [ht.scan_streams(d, hs_, [w[i] for i in
+                                             range(CHECK_STREAMS)])
+                    for w in wr]
+            host.append([ht.close_stream(s_) for s_ in hs_])
+        for r, (g, h) in enumerate(zip(got, host)):
+            check([sorted(x) for x in g[:CHECK_STREAMS]]
+                  == [sorted(x) for x in h],
+                  f"{name} round {r}: the first {CHECK_STREAMS} streams != "
+                  "the host path")
+        n_match = 0
+        for i in range(CHECK_STREAMS):
+            data = b"".join(w[i] for w in wr)
+            blk = ht.scan(bdb, data, device="cpu")
+            mine = set().union(*(_as_set(g[i]) for g in got))
+            check(mine == _as_set(blk), f"{name} stream {i}: its matches "
+                  "!= the block scan of its writes")
+            n_match += len(mine)
+        out[name] = n_match
+    for name, lists in st["mesh"].items():
+        check(lists == sc_out, f"scan_streams(mesh={name}) != unsharded")
+    plants = stream_plants(STREAMS, (2 + STREAM_ROUNDS) * STREAM_WRITE)
+    found = {(i, m[2]) for rnd in warm for i, ms in enumerate(rnd)
+             for m in ms if m[0] == 0}
+    check(plants <= found and plants, f"StreamSet: {len(plants - found)} "
+          f"of {len(plants)} planted matches missing")
+    sc_plants = stream_plants(SCAN_STREAMS,
+                              len(sc_writes) * STREAM_WRITE)
+    sc_found = {(i, m[2]) for rnd in sc_out for i, ms in enumerate(rnd)
+                for m in ms if m[0] == 0}
+    check(sc_plants <= sc_found and sc_plants,
+          "scan_streams: planted matches missing")
+    out["plants"] = (len(plants), len(sc_plants))
+    return out
+
+
+def _arr_err(a, b) -> int:
+    """Max abs difference of two integer arrays (their size difference,
+    at least 1, when the shapes differ)."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    if a.shape != b.shape:
+        return max(1, abs(a.size - b.size))
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def streamset_round_checks(torch, T, lit, h) -> dict:
+    """The kernels of the family that ran the last timed StreamSet round,
+    on that round's own extent tensor (16,384 stitched extents) at the
+    round's capacities, each against its plain version on the same bytes,
+    exact; the hash confirm's pair total also equals the round's own (the
+    same function of the same inputs). Returns the max abs
+    error of each kernel, keyed as phase 2c's (and "compact", "confirm"
+    for kernels A and B)."""
+    from hyperscan_tpu_torch.ops import extract as X
+    from hyperscan_tpu_torch.ops import teddy_gate as G
+    from hyperscan_tpu_torch.ops import teddy_kconfirm as K
+
+    corpus = h.corpus[:h.n_valid]
+    n = corpus.numel()
+    ft, ct = T.device_tables(lit, DEVICE)
+    classes = ft.cmasks is not None
+    errs = {}
+    if h.family == "kconfirm":
+        kt = K.confirm_planes(lit, DEVICE)
+        ok_ = K.filter_kconfirm(corpus, ft, kt, use_classes=classes)
+        op_ = K.filter_kconfirm_plain(corpus, ft, kt, use_classes=classes)
+        errs["kconfirm"] = max(
+            int((ok_[0] - op_[0]).abs().max()),
+            cell_err(torch, ok_[2], ok_[1], op_[2], op_[1], K.CAPC2),
+            cell_err(torch, ok_[3], ok_[1], op_[3], op_[1], K.CAPC2))
+        check(errs["kconfirm"] == 0, "StreamSet round: kernel 4 != plain")
+        check(int(h.meta[2]) == int(op_[1].sum()),
+              "StreamSet round: its match total != the plain version's")
+        return errs
+    if h.family == "dense":
+        plane_k = T.filter_plane(corpus, ft, use_classes=classes)
+        plane_p = T.filter_plane_plain(corpus, ft, use_classes=classes)
+        errs["plane"] = int((plane_k != plane_p).sum())
+        total = int(plane_p.sum())
+        mk, pos = X.plane_extract(plane_k, n, h.caps[0])
+        mp, qp = X.plane_extract_plain(plane_k, n, h.caps[0])
+        errs["extract"] = max(int((mk - mp).abs().max()),
+                              int((pos - qp).abs().max()))
+    else:
+        capc = h.caps[1]
+        if h.family == "gated":
+            gt = G.device_gate_table(lit, DEVICE)
+            fk, kk = G.gate_rows(corpus, gt)
+            fp, kp = G.gate_rows_plain(corpus, gt)
+            errs["gate"] = max(int((fk.int() - fp.int()).abs().max()),
+                               int((kk - kp).abs().max()))
+            pk, ck = G.rescan_rows(corpus, ft, fk, capc)
+            pp, cp = T.filter_compact_plain(corpus, ft, capc,
+                                            use_classes=True, row_flags=fp)
+            errs["rescan"] = cell_err(torch, pk, ck, pp, cp, capc)
+        else:
+            (pk, ck), errs["compact"] = compare_filter(torch, T, corpus, ft,
+                                                       capc, classes)
+        total = int(ck.sum())
+        _m, pos = T.compact_combine(pk, ck, capc, h.caps[0])
+    for k, e in errs.items():
+        check(e == 0, f"StreamSet round ({h.family}): kernel {k} != plain "
+              "version")
+    probes = sum(g[4] for g in ct.groups)
+    (_p, tot), errs["confirm"] = compare_confirm(
+        torch, T, corpus, pos, ct, T._p2(probes * pos.numel() + 1))
+    check(int(h.meta[2]) == int(tot), f"StreamSet round: its pair total "
+          f"{int(h.meta[2])} != the plain version's {int(tot)}")
+    log(f"StreamSet round kernels ({h.family}) on its {n} B of extents: "
+        f"{total} candidates, {int(tot)} hash-matched pairs: exact")
+    return errs
+
+
+def stream_dfa_checks(torch, st) -> int:
+    """Kernel C at the bounded-DFA streams' inputs: every round's 1,024
+    writes, entered in the states the streams carried into it, through
+    the wrapper the path calls (`dfa_scan_corpus_device`, init_states)
+    on the card, against the plain version on the same chunk rows:
+    records and finals exact, and the finals equal the states the path
+    carried out of the round. Returns the max abs error."""
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+
+    (eng,) = st["edb"].engines
+    H, CS = DK.chunk_shape(eng)
+    _o, _t, e_writes = st["engine"]
+    states = st["engine_states"]
+    err = n_rec = 0
+    for r, w in enumerate(e_writes):
+        (b_k, p_k, a_k), fin_k = DK.dfa_scan_corpus_device(
+            eng, w, np.zeros(len(w), bool), init_states=states[r],
+            device=DEVICE)
+        corpus = np.concatenate([np.frombuffer(x, np.uint8) for x in w])
+        corpus_t, tabs, meta, plan, _s, _l = chunk_inputs(
+            torch, eng, corpus, [len(x) for x in w], H, CS, states[r])
+        rp, tp, fp = DK.dfa_scan_chunks_plain(corpus_t, tabs, meta, H,
+                                              1 << 22)
+        check(int(tp) <= 1 << 22, "stream DFA round: records past 2^22")
+        c, t, a = rp[:int(tp)].long().cpu().numpy().T
+        fin_p = fp.cpu().numpy()[plan.last]
+        e = max(_arr_err(b_k, plan.block[c]),
+                _arr_err(p_k, plan.body_start[c] + t - H),
+                _arr_err(a_k, a), _arr_err(fin_k, fin_p),
+                _arr_err(fin_p, states[r + 1]))
+        check(e == 0, f"stream DFA round {r}: kernel C (carried entry "
+              "states) != plain version")
+        err = max(err, e)
+        n_rec += len(b_k)
+    log(f"bounded DFA streams, kernel C at the path's inputs: "
+        f"{len(e_writes)} rounds x {len(e_writes[0])} writes entered in "
+        f"carried states, {n_rec} records, finals == the streams' carried "
+        f"states: exact")
+    return err
+
+
 # --- the main path -----------------------------------------------------------
 
 
@@ -1503,6 +1976,9 @@ def main() -> int:
     merr = multi_kernel_checks(torch, T, dbs[10_000], edbs)
     err_c = max(err_c, merr["dfa_batch"])
 
+    # phase 2e: kernel 4's stage modes at 16 MB
+    serr = stage_kernel_checks(torch, T, dbs[10_000])
+
     # phase 3: the main path under the default family choice: 10k
     # ruleset, 512 MB, both corpus kinds; then the flood database
     db = dbs[10_000]
@@ -1601,6 +2077,64 @@ def main() -> int:
             f"({ENGINE_BYTES / t_c / 1e9:.3f} / {ENGINE_BYTES / t_m / 1e9:.3f}"
             f" GB/s, upload included) [{card}]")
 
+    # phase 3e: streaming at full width
+    t3e = time.perf_counter()
+    st = streaming_path(torch, ht, T, db, edbs, ecorpus)
+    slaunch = st["launches"]
+    log(f"streaming-path launches: {slaunch}; literal families: "
+        f"{st['families']}")
+    check(st["families"] and all(slaunch[filters[f]] > 0
+                                 for f in st["families"]),
+          f"the streaming path's families {st['families']} did not launch "
+          "their filter kernels")
+    check(slaunch["dfa_scan"] > 0, "kernel dfa_scan was not launched on the "
+          "streaming path")
+    sn = streaming_checks(ht, db, edbs, st)
+    # the path's kernels at the path's inputs, against their plain versions
+    rerr = streamset_round_checks(torch, T, st["sdb"].lit,
+                                  st["passes"][-1][4].dev_handle)
+    err_c = max(err_c, stream_dfa_checks(torch, st))
+    err_a = max(err_a, rerr.pop("compact", 0))
+    err_b = max(err_b, rerr.pop("confirm"))
+    for k, e in rerr.items():
+        ferr[k] = max(ferr[k], e)
+    hreq = st["hreq"]
+    vol = STREAMS * STREAM_WRITE * STREAM_ROUNDS
+    log(f"streaming set-up {st['setup_s']:.1f} s (the stream database, "
+        f"history {hreq} B, the extents); gc.freeze() after set-up")
+    warm, warm_s, warm_fams = st["warm"]
+    log(f"StreamSet warm pass: {warm_s:.3f} s, families {warm_fams}")
+    for k, (out, took, fams_, _ss, _h) in enumerate(st["passes"]):
+        log(f"StreamSet {STREAMS} x {STREAM_WRITE} B, pass {k}: "
+            f"{STREAM_ROUNDS} pipelined rounds in {took:.4f} s -> "
+            f"{vol / took / 1e9:.3f} GB/s of new bytes (upload inside the "
+            f"timed loop), families per round {fams_}, "
+            f"{sum(len(m) for rnd in out[2:] for m in rnd)} matches [{card}]")
+    log(f"StreamSet round stage seconds [{card}]: " + json.dumps(
+        {k: round(v, 6) for k, v in st["round_stages"].items()}))
+    sc_out, sc_times, _w = st["sc"]
+    log(f"scan_streams {SCAN_STREAMS} x {STREAM_WRITE} B: timed rounds "
+        f"{[round(t, 4) for t in sc_times]} s -> "
+        f"{SCAN_STREAMS * STREAM_WRITE / (sum(sc_times) / len(sc_times)) / 1e9:.3f}"
+        f" GB/s [{card}]")
+    host_n, host_s = st["host"]
+    log(f"scan_streams {HOST_STREAMS} x {STREAM_WRITE} B on the host path: "
+        f"{HOST_ROUNDS} rounds in {host_s:.3f} s -> "
+        f"{HOST_STREAMS * STREAM_WRITE * HOST_ROUNDS / host_s / 1e9:.3f} "
+        f"GB/s, {host_n} matches [{card}]")
+    e_out, e_times, _w = st["engine"]
+    log(f"bounded DFA streams {ENGINE_STREAMS} x {ENGINE_WRITE} B x "
+        f"{ENGINE_ROUNDS} rounds (kernel C entered in carried states): "
+        f"rounds {[round(t, 4) for t in e_times]} s -> "
+        f"{ENGINE_STREAMS * ENGINE_WRITE * ENGINE_ROUNDS / sum(e_times) / 1e9:.3f}"
+        f" GB/s, {sum(len(m) for rnd in e_out for m in rnd)} matches [{card}]")
+    log(f"streaming checks: the first {CHECK_STREAMS} streams == host path "
+        f"== block scans of their writes (matches {sn}), scan_streams(mesh=)"
+        f" == unsharded on {list(st['mesh'])}, planted (StreamSet, "
+        f"scan_streams) {sn['plants']} found; phase 3e "
+        f"{time.perf_counter() - t3e:.1f} s")
+    del st
+
     # phase 4: per-kernel times at the main path's shapes
     kt = {}
     for kind, (corpus, _out, _w, _t) in runs.items():
@@ -1642,6 +2176,18 @@ def main() -> int:
         + json.dumps(mkt, sort_keys=True))
     merr["words"] = max(merr["words"], mkt["err"]["words"])
     err_c = max(err_c, mkt["err"]["dfa_batch"])
+    # phase 4e: the stage probe of kernel 4 at 512 MiB iid
+    probe = stage_probe_times(torch, T, db, runs["iid"][0], clock_hz)
+    serr = max(serr, probe["err"])
+    pms = probe["ms"]
+    log(f"stage probe 512 MiB iid ({probe['candidates']} candidates, "
+        f"{probe['matches']} hash matches, end-to-end families "
+        f"{probe['families']}) [{card}]: " + "; ".join(
+            f"{k} {v:.3f} ms {MAIN_BYTES / v / 1e6:.2f} GB/s"
+            for k, v in pms.items()))
+    log(f"stage probe bounds and plain versions [{card}]: " + json.dumps(
+        {"bounds": probe["bounds"], "plain_ms": probe["plain_ms"],
+         "launches": probe["launches"]}, sort_keys=True))
     log("forced-family GB/s [" + card + "]: " + json.dumps(
         {f"{k} {f}": round(v["gb_s"], 4) for (k, f), v in forced.items()}))
     c = ekt[("bounded_dfa", "one_block")]
@@ -1711,6 +2257,24 @@ def main() -> int:
             "max_abs_err": merr["words"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # row 11: stages 0-2 of kernel 4 on the stage probe's path; the entry
+    # gives stage 2's time and bound (the deepest stage mode), and each
+    # stage's under "stages"
+    kernels.append({
+        "name": "teddy_kconfirm_stage", "route": "cuda",
+        "source": "hyperscan_tpu_torch/csrc/teddy_kconfirm_stage.cu",
+        "replaces": "tools_probe_rank_bisect.py:163, "
+                    "tools_probe_kconf_split.py:128",
+        "launches": probe["launches"]["teddy_kconfirm_stage"],
+        "max_abs_err": serr, "ms": pms["stage 2"],
+        "plain_ms": probe["plain_ms"]["stage 2"],
+        "bound_ms": probe["bounds"]["stage 2"]["bound_ms"],
+        "bound_by": probe["bounds"]["stage 2"]["bound_by"],
+        "library_ms": None,
+        "stages": {f"stage {s_}": {
+            "ms": pms[f"stage {s_}"],
+            "plain_ms": probe["plain_ms"][f"stage {s_}"],
+            **probe["bounds"][f"stage {s_}"]} for s_ in (0, 1, 2)}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 // one thread and the candidate test over its 16 bytes.
 //
 // Included by teddy_filter_compact.cu (compaction, plane and survivor-row
-// modes), teddy_gate.cu (the single-word gate) and teddy_kconfirm.cu (the
+// modes), teddy_gate.cu (the single-word gate) and teddy_kconfirm.cuh (the
 // filter with the hash confirm inside). See teddy_filter_compact.cu for the
 // filter's definition and its design.
 

@@ -24,8 +24,12 @@ from typing import Dict, Iterable, Optional
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
+# -split-compile=0: the device code of a source is optimised in as many
+# threads as the host has cores (the sources with many template instances
+# are the long pole of a cold build)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -36,7 +40,8 @@ LAUNCHES = {"teddy_filter_compact": 0, "teddy_hash_confirm": 0,
             "dfa_scan": 0, "nfa_layered": 0, "teddy_gate": 0,
             "teddy_rescan_rows": 0, "teddy_kconfirm": 0,
             "teddy_filter_plane": 0, "plane_extract": 0,
-            "teddy_words_count": 0, "teddy_words_list": 0}
+            "teddy_words_count": 0, "teddy_words_list": 0,
+            "teddy_kconfirm_stage": 0}
 
 
 def reset_launches() -> None:

@@ -4,7 +4,9 @@ confirm inside the kernel, over bucket-row confirm tables.
 Reference counterpart: the in-kernel confirm of the JAX package
 (`_confirm_epilogue`, hyperscan_tpu/ops/teddy.py:258, run by the
 pallas_call at :1081), its tables `dev_confirm_planes` (:1506) and its
-combine `kconf_combine` (:1156). Kernel: `csrc/teddy_kconfirm.cu`.
+combine `kconf_combine` (:1156). Kernel: `csrc/teddy_kconfirm.cuh`,
+built as `csrc/teddy_kconfirm.cu` (stage 3) and
+`csrc/teddy_kconfirm_stage.cu` (the stage modes).
 
 The tables are the reference's bucket rows: per confirm group, every
 distinct masked tail value lives in row `hash & (t_rows - 1)` with the
@@ -15,6 +17,13 @@ confirms every candidate of a cell, so the reference's capc, its XLA
 sidecar for cells past capc (kconf_combine :1206-1231) and its limit of
 two matches per row probe have no counterpart: the hash-matched set
 equals the reference's wherever the reference needed no sidecar.
+
+`filter_kconfirm(..., stage=s)` cuts the kernel after each part of the
+confirm, for the stage probe (tools/kconf_probe.py; the counterpart of
+the reference's stage-bisect probes and its `_KCONF_STAGE` knob, which
+is not an environment variable, and neither is this): stages 0-2 return
+per-cell (candidates, checksum, matches), see `filter_kconfirm_stage_plain`.
+No scan path passes a stage.
 """
 
 from __future__ import annotations
@@ -214,56 +223,135 @@ def filter_kconfirm_plain(corpus_u8: torch.Tensor, tables: FilterTables,
     return cand, conf, out_pos, out_cls
 
 
-def _lib():
+STAGES = (0, 1, 2, 3)  # the kernel's stage modes; 3 is the full kernel
+
+
+def _as_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors of the same bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).int()
+
+
+def filter_kconfirm_stage_plain(corpus_u8: torch.Tensor,
+                                tables: FilterTables, kt: KconfTables, *,
+                                use_classes: bool, stage: int):
+    """Plain PyTorch version of `filter_kconfirm` at stage 0, 1 or 2.
+
+    Returns int32 [n_cells] each:
+    - cand: the exact candidates of each cell (every stage);
+    - chk: stages 1-2, the sum mod 2^32 (as int32 bits) over the cell's
+      candidates p and the confirm groups (cl, mlo, mhi) with
+      p >= cl - 1 of the group's avalanche hash of p's 8 tail bytes;
+      0 at stage 0;
+    - conf: stage 2, the exact hash matches of each cell (the count that
+      stage 3 returns); 0 at stages 0-1."""
+    if stage not in (0, 1, 2):
+        raise ValueError(f"stage {stage} is not a stage mode (0, 1, 2)")
+    n = corpus_u8.numel()
+    n_cells = _n_cells(n)
+    dev = corpus_u8.device
+    cand = torch.zeros(n_cells, dtype=torch.int64, device=dev)
+    chk = torch.zeros(n_cells, dtype=torch.int64, device=dev)
+    conf = torch.zeros(n_cells, dtype=torch.int64, device=dev)
+    for c0 in range(0, n_cells, _PLAIN_CHUNK_CELLS):
+        c1 = min(n_cells, c0 + _PLAIN_CHUNK_CELLS)
+        lo, hi = c0 * CELL, min(n, c1 * CELL)
+        if hi <= lo:
+            break
+        p = torch.nonzero(
+            _candidates_plain(corpus_u8, tables, use_classes, lo, hi)
+        ).squeeze(1) + lo
+        cell = torch.div(p, CELL, rounding_mode="floor")
+        cand[c0:c1] = torch.bincount(cell - c0, minlength=c1 - c0)
+        if stage == 0:
+            continue
+        lo_w, hi_w = _tail_words(corpus_u8, p,
+                                 torch.ones_like(p, dtype=torch.bool))
+        for (cl, mlo, mhi, _t_rows, _base) in kt.groups:
+            h = _hash(lo_w, hi_w, mlo, mhi) * (p >= cl - 1)
+            chk.index_add_(0, cell, h)
+        chk &= 0xFFFFFFFF
+        if stage == 2:
+            mp, _ms = _matches_plain(corpus_u8, p, kt)
+            conf[c0:c1] = torch.bincount(
+                torch.div(mp, CELL, rounding_mode="floor") - c0,
+                minlength=c1 - c0)
+    return cand.int(), _as_i32(chk), conf.int()
+
+
+def _lib(stage: int):
+    """Stage 3's library (the scan path's), or the stage modes' own."""
     from ._build import library
 
-    lib = library("teddy_kconfirm")
+    name = "teddy_kconfirm" if stage == 3 else "teddy_kconfirm_stage"
+    lib = library(name)
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hs_teddy_kconfirm.restype = ci
-        lib.hs_teddy_kconfirm.argtypes = [
-            vp, cll, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp,
-            ci, vp]
-        lib.hs_teddy_kconfirm_error.restype = ctypes.c_char_p
-        lib.hs_teddy_kconfirm_error.argtypes = [ci]
+        fn = getattr(lib, f"hs_{name}")
+        fn.restype = ci
+        # stage 3 takes the pair buffers, the stage modes a checksum
+        # buffer and the stage
+        fn.argtypes = [vp, cll, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp, vp,
+                       vp] + ([vp, vp] if stage == 3 else [vp, ci]) + [ci, vp]
+        err = getattr(lib, f"hs_{name}_error")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ci]
         lib._typed = True
-    return lib
+    return getattr(lib, f"hs_{name}"), getattr(lib, f"hs_{name}_error")
 
 
 def filter_kconfirm(corpus_u8: torch.Tensor, tables: FilterTables,
-                    kt: KconfTables, *, use_classes: bool):
+                    kt: KconfTables, *, use_classes: bool, stage: int = 3):
     """Kernel 4: Teddy filter + hash confirm of every candidate.
 
     Returns (cand_counts int32 [n_cells]: exact candidates a cell;
     conf_counts int32 [n_cells]: exact hash matches a cell; pos, cls
     int32 [n_cells, CAPC2]: the cell's first CAPC2 matches as (position,
-    class id + 1), in (position, slot) order)."""
+    class id + 1), in (position, slot) order).
+
+    `stage` 0, 1 or 2 runs the kernel cut after that part of the confirm
+    (the stage probe's modes, counted under `teddy_kconfirm_stage`) and
+    returns (cand, chk, conf) as `filter_kconfirm_stage_plain` does."""
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage} is not one of {STAGES}")
     if not _on_card(corpus_u8, tables, use_classes):
-        return filter_kconfirm_plain(corpus_u8, tables, kt,
-                                     use_classes=use_classes)
+        if stage == 3:
+            return filter_kconfirm_plain(corpus_u8, tables, kt,
+                                         use_classes=use_classes)
+        return filter_kconfirm_stage_plain(corpus_u8, tables, kt,
+                                           use_classes=use_classes,
+                                           stage=stage)
     if kt.sigs.device != corpus_u8.device:
         raise ValueError("confirm tables and corpus lie on different "
                          "devices")
-    lib = _lib()
+    launch, error = _lib(stage)
     n = corpus_u8.numel()
     n_cells = _n_cells(n)
     dev = corpus_u8.device
     cand = torch.empty(n_cells, dtype=torch.int32, device=dev)
     conf = torch.empty(n_cells, dtype=torch.int32, device=dev)
-    out_pos = torch.empty((n_cells, CAPC2), dtype=torch.int32, device=dev)
-    out_cls = torch.empty((n_cells, CAPC2), dtype=torch.int32, device=dev)
+    if stage == 3:
+        out_pos = torch.empty((n_cells, CAPC2), dtype=torch.int32,
+                              device=dev)
+        out_cls = torch.empty((n_cells, CAPC2), dtype=torch.int32,
+                              device=dev)
+        bufs = (out_pos.data_ptr(), out_cls.data_ptr())
+    else:
+        chk = torch.empty(n_cells, dtype=torch.int32, device=dev)
+        bufs = (chk.data_ptr(), stage)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.hs_teddy_kconfirm(
+    rc = launch(
         corpus_u8.data_ptr(), n, *_table_args(tables, use_classes),
         kt.meta.data_ptr(), len(kt.groups), kt.sigs.data_ptr(),
         kt.fills.data_ptr(), kt.cls.data_ptr(), cand.data_ptr(),
-        conf.data_ptr(), out_pos.data_ptr(), out_cls.data_ptr(), n_cells,
-        stream)
+        conf.data_ptr(), *bufs, n_cells, stream)
     if rc:
         raise RuntimeError("teddy_kconfirm launch failed: "
-                           + lib.hs_teddy_kconfirm_error(rc).decode())
-    LAUNCHES["teddy_kconfirm"] += 1
-    return cand, conf, out_pos, out_cls
+                           + error(rc).decode())
+    if stage == 3:
+        LAUNCHES["teddy_kconfirm"] += 1
+        return cand, conf, out_pos, out_cls
+    LAUNCHES["teddy_kconfirm_stage"] += 1
+    return cand, chk, conf
 
 
 def kconf_combine(cand: torch.Tensor, conf: torch.Tensor,

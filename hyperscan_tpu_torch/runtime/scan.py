@@ -900,6 +900,85 @@ def finalize_reports(
     return out, False
 
 
+def finalize_report_ranges(
+    db: Database,
+    batch: RecordBatch,
+    seen_single: Optional[set] = None,
+    som_horizon: Optional[int] = None,
+) -> Tuple[List[Match], List[Tuple[int, int, int]]]:
+    """Report semantics WITHOUT expanding dense per-offset ranges.
+
+    Returns (point_matches, ranges) where each range (external_id,
+    lo_to, hi_to) stands for a match at every `to` in [lo_to, hi_to]
+    with from=0 — O(ranges) instead of O(offsets) for pathological
+    match densities (`x*` over megabytes). The reference delivers such
+    matches as millions of ns-cost callbacks (src/rose/match.c); a
+    vectorized runtime's equivalent is the interval itself.
+    """
+    if seen_single is None:
+        seen_single = set()
+    if db.combos():
+        # combination flush points depend on every event offset: fall
+        # back to full expansion (rare: vacuous + combinations)
+        ms, _t = finalize_reports(db, batch, None,
+                                  seen_single=seen_single,
+                                  som_horizon=som_horizon)
+        return ms, []
+    minoff, maxoff, minlen, flags, extid = _pattern_arrays(db)
+    ms, _t = _finalize_batch(
+        db, RecordBatch(batch.eids, batch.tos, batch.frms), None,
+        seen_single, som_horizon,
+    )
+    out_r: List[Tuple[int, int, int]] = []
+    for (eid, lo, hi) in batch.ranges:
+        fl = int(flags[eid])
+        if fl & HS_FLAG_QUIET:
+            continue
+        lo = max(lo, int(minoff[eid]))
+        hi = min(hi, int(maxoff[eid]))
+        if minlen[eid]:
+            lo = max(lo, int(minlen[eid]))
+        if hi < lo:
+            continue
+        if fl & HS_FLAG_SINGLEMATCH:
+            if eid not in seen_single:
+                seen_single.add(int(eid))
+                ms.append((int(extid[eid]), 0, lo))
+            continue
+        out_r.append((int(extid[eid]), lo, hi))
+    return ms, out_r
+
+
+def scan_block_ranges(
+    db: Database,
+    data: bytes,
+    scratch: Optional[Scratch] = None,
+    device="cuda",
+) -> Tuple[List[Match], List[Tuple[int, int, int]]]:
+    """Block scan returning (point_matches, unexpanded ranges) — the
+    O(ranges) entry point for dense-match patterns (see
+    finalize_report_ranges). Runs on `device`, the card by default."""
+    if base_mode(db.mode) != HS_MODE_BLOCK:
+        raise DbModeError("database not compiled for block mode")
+    device = resolve_device(device)
+    scratch = scratch or Scratch()
+    recs = scan_blocks_raw(db, [bytes(data)], scratch.capacity,
+                           device=device)[0]
+    return finalize_report_ranges(db, recs)
+
+
+def scan_count(
+    db: Database,
+    data: bytes,
+    scratch: Optional[Scratch] = None,
+    device="cuda",
+) -> int:
+    """Total match count of a block scan without materializing
+    per-offset tuples (hsbench matches/kB without the tuple cost)."""
+    ms, ranges = scan_block_ranges(db, data, scratch, device)
+    return len(ms) + sum(hi - lo + 1 for (_e, lo, hi) in ranges)
+
+
 def scan_block(
     db: Database,
     data: bytes,

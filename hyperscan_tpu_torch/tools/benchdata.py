@@ -1,0 +1,115 @@
+"""The bench rulesets and corpora of the JAX package's bench.py, copied
+(bench.py belongs to the JAX package): Snort-flavored patterns that all
+carry bounded literal factors, and 4 KiB of planted matches spliced into
+corpora of printable bytes made from a formula.
+
+Used by chip_smoke.py and the stage probe (tools/kconf_probe.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+WORDS = ["attack", "payload", "shell", "admin", "select", "union", "eval",
+         "script", "passwd", "cookie", "token", "login", "root", "exec"]
+
+PLANTS = [b"attack0 ", b"payload16y99z!", b"x12GET /abc ", b"q8hdeadbeef ",
+          b"v4.exe ", b"union55 ", b"shell2222 ",
+          b"gate5xabcdabunion5end ", b"gate11xlogin11end "]
+PLANT_AT = 128
+
+
+def patterns(n: int):
+    """n patterns and their ids (bench.py:52-90)."""
+    pats, ids = [], []
+    for i in range(n):
+        k = i % 6
+        w = WORDS[i % len(WORDS)]
+        if k == 0:
+            pats.append(w + str(i))
+        elif k == 1:
+            pats.append(rf"{w}{i}[0-9]{{2,4}}z")
+        elif k == 2:
+            pats.append(rf"x{i}(GET|POST|PUT) /[a-z]{{1,20}}")
+        elif k == 3:
+            pats.append(rf"q{i}h[a-f0-9]{{8}}")
+        elif k == 4:
+            pats.append(rf"v{i}\.(exe|dll|bat)")
+        else:
+            pats.append(rf"gate{i}x(ab|cd)*{w}{i}end")
+        ids.append(i)
+    return pats, ids
+
+
+def plant_region() -> np.ndarray:
+    """4 KiB holding every planted match, spliced at offset 128."""
+    region = np.full(4096, ord(" "), dtype=np.uint8)
+    off = 16
+    for k in range(len(PLANTS) * 4):
+        p = PLANTS[k % len(PLANTS)]
+        region[off:off + len(p)] = np.frombuffer(p, np.uint8)
+        off += len(p) + 97
+    return region
+
+
+def gen_corpus(n: int, salt: int, kind: str) -> np.ndarray:
+    """kind="structured": a multiplicative-hash progression (low filter
+    candidate rate); kind="iid": one more xorshift-multiply round, iid-like
+    printable noise (the adversarial candidate rate)."""
+    v = np.arange(n, dtype=np.uint32)
+    v += np.uint32(salt * 1_000_003)
+    v *= np.uint32(2654435761)
+    if kind == "iid":
+        v ^= v >> np.uint32(15)
+        v *= np.uint32(2246822519)
+    v >>= np.uint32(16)
+    lut = (32 + np.arange(65536, dtype=np.uint32) % 95).astype(np.uint8)
+    corpus = lut[v]
+    corpus[PLANT_AT:PLANT_AT + 4096] = plant_region()
+    return corpus
+
+
+# --- streams (the formula of the JAX package's tools_bench_stream.py) --------
+
+_PRINTABLE = (32 + np.arange(65536, dtype=np.uint32) % 95).astype(np.uint8)
+
+STREAM_PLANT = b"attack0 "
+STREAM_PERIOD = 1 << 17  # one planted match per 128 KiB per stream
+
+
+def stream_extents(n_streams: int, write: int, hist: int,
+                   r: int) -> np.ndarray:
+    """Round r's extents of `n_streams` streams that each write `write`
+    bytes a round, head to head: each stream's last `hist` bytes of
+    history, then its write. Stream si's byte at absolute offset t is a
+    printable multiply-mix of (si, t), with STREAM_PLANT spliced where
+    (t - 131 si) is a multiple of STREAM_PERIOD (tools_bench_stream.py:
+    54-96)."""
+    ext_len = hist + write
+    if ext_len > STREAM_PERIOD:
+        raise ValueError("an extent longer than the plant period")
+    t_lo = r * write - hist  # each extent's first absolute offset
+    si = np.arange(n_streams, dtype=np.uint32)[:, None]
+    t = np.arange(t_lo, t_lo + ext_len, dtype=np.int64).astype(np.uint32)
+    v = (si * np.uint32(1_000_003) + t[None, :]) * np.uint32(2654435761)
+    out = _PRINTABLE[v >> np.uint32(16)]
+    # plant byte k lies where t - 131 si = k (mod STREAM_PERIOD): at most
+    # once in an extent, which is shorter than the period
+    rows = np.arange(n_streams, dtype=np.int64)
+    for k, byte in enumerate(STREAM_PLANT):
+        at = (131 * rows + k - t_lo) % STREAM_PERIOD
+        hit = at < ext_len
+        out[rows[hit], at[hit]] = byte
+    return out.reshape(-1)
+
+
+def stream_plants(n_streams: int, n_bytes: int) -> set:
+    """(stream, end offset of its `attack0`, the bench ruleset's pattern
+    0) of every STREAM_PLANT that lies wholly in the first `n_bytes` of
+    each stream."""
+    out = set()
+    for si in range(n_streams):
+        for t in range((131 * si) % STREAM_PERIOD, n_bytes, STREAM_PERIOD):
+            if t + len(STREAM_PLANT) <= n_bytes:
+                out.add((si, t + len(STREAM_PLANT) - 1))
+    return out

@@ -1,0 +1,159 @@
+"""Stage probe of kernel 4, the kconfirm filter with its in-kernel confirm:
+where does a kconfirm scan spend its time?
+
+The counterpart of the JAX package's stage-bisect probes
+(tools_probe_kconf_split.py, tools_probe_rank_bisect.py). Over one
+corpus it times, on the card:
+
+- "D plane": kernel A's plane mode, the bare filter without any confirm;
+- "stage 0" .. "stage 2": kernel 4 cut after the candidate count, after
+  the tail bytes and hashes, and after the bucket-row compares
+  (`ops.teddy_kconfirm.filter_kconfirm(..., stage=s)`);
+- "stage 3": the full kernel;
+- "B stage 3 + combine": the full kernel and `kconf_combine`;
+- "C end to end": `confirm_start` / `confirm_fetch_many` /
+  `confirm_finish` with the kconfirm family forced, host stages included.
+
+Kernel times are CUDA-event means after one warm-up call; the end-to-end
+time is wall-clock. Every line gives ms and GB/s of corpus.
+
+Usage, on a machine with a CUDA card:
+
+    python3 tools_torch_probe_kconfirm.py [--mb 512] [--reps 10]
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from .benchdata import gen_corpus, patterns
+
+STAGE_NAMES = ("D plane", "stage 0", "stage 1", "stage 2", "stage 3",
+               "B stage 3 + combine", "C end to end")
+
+
+def _time_ms(torch, fn, reps: int, device) -> float:
+    """Mean ms per call after one warm-up call: CUDA events on a card,
+    the wall clock elsewhere."""
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def stage_times(db, corpus: np.ndarray, reps: int = 10,
+                device="cuda") -> dict:
+    """ms of each probe variant (STAGE_NAMES) over `corpus` with the
+    literal database `db`, and what they counted: the candidates, the
+    matches, and the families the end-to-end scans ran. The database's
+    learned capacities come from two warm end-to-end scans."""
+    import torch
+
+    from ..ops import teddy as T
+    from ..ops import teddy_families as F
+    from ..ops import teddy_kconfirm as K
+    from ..runtime.scan import resolve_device
+
+    device = resolve_device(device)
+    lit = db.lit
+    n = len(corpus)
+    corpus_t = T.corpus_tensor(corpus, device)
+    ft, _ct = T.device_tables(lit, device)
+    kt = K.confirm_planes(lit, device)
+    if kt is None:
+        raise ValueError("the database has no kconfirm tables")
+    uc = ft.cmasks is not None
+    force = F.family_state(lit).force
+    F.force_family(lit, "kconfirm")
+    try:
+        for _ in range(2):
+            F.confirm_finish(F.confirm_start(corpus_t, lit, n))
+        cap2 = F._caps_for(lit, 1 << 14)[2]
+        before = dict(F.family_state(lit).dispatches)
+
+        def end_to_end():
+            hs = [F.confirm_start(corpus_t, lit, n) for _ in range(reps)]
+            for h, got in zip(hs, F.confirm_fetch_many(hs)):
+                F.confirm_finish(h, got)
+
+        t0 = time.perf_counter()
+        end_to_end()
+        e2e_ms = (time.perf_counter() - t0) / reps * 1e3
+        fams = [f for f in F.FAMILIES
+                if F.family_state(lit).dispatches[f] > before[f]]
+    finally:
+        F.force_family(lit, force)
+
+    def kc(stage):
+        return K.filter_kconfirm(corpus_t, ft, kt, use_classes=uc,
+                                 stage=stage)
+
+    out = {"D plane": _time_ms(torch, lambda: T.filter_plane(
+        corpus_t, ft, use_classes=uc), reps, device)}
+    for s in K.STAGES:
+        out[f"stage {s}"] = _time_ms(torch, lambda: kc(s), reps, device)
+    out["B stage 3 + combine"] = _time_ms(
+        torch, lambda: K.kconf_combine(*kc(3), cap2), reps, device)
+    out["C end to end"] = e2e_ms
+    cand, conf, _pos, _cls = kc(3)
+    return {"ms": out, "candidates": int(cand.long().sum()),
+            "matches": int(conf.long().sum()), "families": fams,
+            "n_bytes": n, "groups": len(kt.groups), "classes": uc}
+
+
+def report(res: dict, card: str) -> list:
+    """One line per variant: ms and GB/s of corpus, with the card."""
+    n = res["n_bytes"]
+    return [f"{name:<20s} {ms:9.3f} ms  {n / ms / 1e6:8.2f} GB/s  [{card}]"
+            for name, ms in res["ms"].items()]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--mb", type=int, default=512)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--patterns", type=int, default=10_000)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    import hyperscan_tpu_torch as ht
+
+    t0 = time.perf_counter()
+    pats, ids = patterns(args.patterns)
+    db = ht.compile_multi(pats, ids=ids)
+    print(f"compiled {args.patterns} patterns in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    corpus = gen_corpus(args.mb << 20, 1, "iid")
+    res = stage_times(db, corpus, args.reps, args.device)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0] \
+        if args.device != "cpu" else "cpu"
+    print(f"{args.mb} MiB iid: {res['candidates']} candidates, "
+          f"{res['matches']} hash matches, {res['groups']} confirm groups, "
+          f"end-to-end families {res['families']}")
+    for line in report(res, card):
+        print(line)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -437,3 +437,95 @@ def test_sharded_scans_on_one_card(card):
     m4 = P.sharded_scan_matches(eng, data, lengths, four, capacity=512)
     assert int(m1[0].sum()) == int(m4[0].sum()) == c1
     assert m4[4].shape == (4, data.shape[0] // 4)
+
+
+# --- kernel 4's stage modes (row 11) and streaming on the card ---------------
+
+from hyperscan_tpu_torch.runtime import streamset as SS  # noqa: E402
+
+KC_PATS = (["attack%d" % i for i in range(40)]
+           + [r"payload%d[0-9]{2,4}z" % i for i in range(30)]
+           + [r"q%dh[a-f0-9]{8}" % i for i in range(30)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 20) + 13, 4 * 65536, 100])
+def test_kconfirm_stages_equal_plain(card, n):
+    """Stages 0-2 of kernel 4 equal their plain versions; stage 3's
+    candidate counts equal stage 0's, its match counts stage 2's."""
+    db = ht.compile_multi(KC_PATS, ids=list(range(len(KC_PATS))))
+    ft, _ct = T.device_tables(db.lit, card)
+    kt = K.confirm_planes(db.lit, card)
+    uc = ft.cmasks is not None
+    corpus = torch.from_numpy(_gated_corpus(n, 3)).to(card)
+    full = K.filter_kconfirm(corpus, ft, kt, use_classes=uc)
+    T.reset_launches()
+    got = {}
+    for stage in (0, 1, 2):
+        k = K.filter_kconfirm(corpus, ft, kt, use_classes=uc, stage=stage)
+        p = K.filter_kconfirm_stage_plain(corpus, ft, kt, use_classes=uc,
+                                          stage=stage)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), stage
+        got[stage] = k
+    assert T.LAUNCHES["teddy_kconfirm_stage"] == 3
+    assert T.LAUNCHES["teddy_kconfirm"] == 0
+    assert torch.equal(full[0], got[0][0]) and torch.equal(full[0], got[2][0])
+    assert torch.equal(full[1], got[2][2])
+
+
+@pytest.mark.cuda
+def test_streamset_round_on_card_equals_cpu(card):
+    """Pipelined StreamSet rounds on the card, the extents uploaded by the
+    caller (`ext_t`), equal the same rounds on the CPU; the round's
+    filter kernel ran."""
+    db = ht.compile_multi(KC_PATS, ids=list(range(len(KC_PATS))),
+                          mode=ht.HS_MODE_STREAM)
+    S, write = 48, 8192
+    writes = [[_gated_corpus(write, 100 * r + i).tobytes()
+               for i in range(S)] for r in range(3)]
+    ref = SS.open_streamset(db, S, device="cpu")
+    want = [SS.scan_streamset(db, ref, w) for w in writes]
+    ss = SS.open_streamset(db, S, device=card)
+    T.reset_launches()
+    handles = []
+    for w in writes:
+        hl = np.asarray([len(h) for h in ss.hist], np.int64)
+        ext = np.frombuffer(b"".join(bytes(h) + c for h, c in zip(ss.hist, w)),
+                            np.uint8).copy()
+        handles.append(SS.streamset_write_start(
+            db, ss, ext_np=ext, ext_t=torch.from_numpy(ext).to(card),
+            hlens=hl, chunk_lens=np.full(S, write, np.int64)))
+    gots = F.confirm_fetch_many([h.dev_handle for h in handles])
+    got = [SS.streamset_write_finish(db, ss, h, got=g)
+           for h, g in zip(handles, gots)]
+    assert got == want and sum(len(m) for r in got for m in r) > 20
+    fam = handles[0].dev_handle.family
+    assert all(T.LAUNCHES[k] > 0 for k in FAMILY_KERNELS[fam])
+    assert SS.close_streamset(db, ss) == SS.close_streamset(db, ref)
+
+
+@pytest.mark.cuda
+def test_stream_engines_on_card_equal_cpu(card):
+    """Large stream writes of a bounded DFA scan on kernel C entered in
+    the carried states and equal the CPU's; scan_streams(threads=2) makes
+    the card current in its threads and equals one thread."""
+    db = compile_patterns([r"[0-9]{6}[a-f]", "attack7"], [0, 0], [1, 2],
+                          mode=ht.HS_MODE_STREAM,
+                          grey=Grey(host_scan_limit=1 << 10))
+    S = 8
+    writes = [[_gated_corpus(5000, 10 * r + i).tobytes() for i in range(S)]
+              for r in range(3)]
+    writes[1][0] = b"12a" + writes[1][0][3:]
+    writes[0][0] = writes[0][0][:-4] + b"3456"
+    cpu = [ht.open_stream(db, device="cpu") for _ in range(S)]
+    want = [ht.scan_streams(db, cpu, w) for w in writes]
+    want.append([ht.close_stream(s) for s in cpu])
+    for threads in (1, 2):
+        T.reset_launches()
+        st = [ht.open_stream(db, device=card) for _ in range(S)]
+        got = [ht.scan_streams(db, st, w, threads=threads) for w in writes]
+        got.append([ht.close_stream(s) for s in st])
+        assert got == want
+        assert T.LAUNCHES["dfa_scan"] > 0
+    assert any(m[0] == 1 and m[2] == 5003 for m in want[1][0])

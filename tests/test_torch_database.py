@@ -17,6 +17,7 @@ import pytest
 import bench
 import hyperscan_tpu as hs
 import hyperscan_tpu_torch as ht
+import torch_ref_native  # noqa: F401 (the reference's native build, locked)
 from hyperscan_tpu.database import compile_patterns as ref_compile
 from hyperscan_tpu.grey import Grey as RefGrey
 from hyperscan_tpu.ops.teddy import _class_split as ref_class_split

@@ -17,6 +17,7 @@ import torch
 
 import hyperscan_tpu as hs
 import hyperscan_tpu_torch as ht
+import torch_ref_native  # noqa: F401 (the reference's native build, locked)
 import jax.numpy as jnp
 
 from hyperscan_tpu.database import compile_patterns as ref_compile

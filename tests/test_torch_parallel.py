@@ -15,6 +15,7 @@ import torch
 
 import hyperscan_tpu as hs
 import hyperscan_tpu_torch as ht
+import torch_ref_native  # noqa: F401 (the reference's native build, locked)
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh as JMesh
