@@ -25,8 +25,9 @@ Phases, in order; any failure exits non-zero:
    (total, hit chunks), positions). Then (2d) kernel 7 (teddy_words,
    count and list mode) on the 10k ruleset's byte masks at 16 MB,
    structured and iid, also at an unaligned length with a look-back head;
-   its candidates must equal kernel A's; and dfa_scan_batch (kernel C
-   chained in plane mode) on a bounded-DFA batch of 1,024 x 16 KiB rows.
+   its candidates must equal kernel A's; and dfa_scan_batch (kernel C's
+   row mode, one launch a call; its tables in shared and in global
+   memory) on a bounded-DFA batch of 1,024 x 16 KiB rows.
    Then (2e) kernel 4's stage modes 0-2 (row 11) on the 10k ruleset at
    16 MB, structured and iid; stage 3's counts must equal stage 0's and
    stage 2's. Tolerance: exact (every value is an integer).
@@ -82,8 +83,10 @@ Phases, in order; any failure exits non-zero:
    literal kernel is held against its plain version at these shapes too
    (exact), and its `max_abs_err` covers both sizes. (4d) kernel 7's two
    modes over the 512 MB corpora (count mode also over four shard
-   segments, row 8's shape) and the chained dfa_scan_batch over
-   16,384 x 16 KiB, beside their bounds and plain versions; at these
+   segments, row 8's shape) and dfa_scan_batch (kernel C's row mode)
+   over 16,384 x 16 KiB and over one shard's 4,096 rows of it, beside
+   their bounds and plain versions (and the row mode's launches a call,
+   counted); at these
    shapes too each equals its plain version (exact). (4e) The stage probe
    (hyperscan_tpu_torch/tools/kconf_probe.py) at 512 MB iid: kernel A's
    plane mode, kernel 4's stages 0-3, stage 3 + kconf_combine and the
@@ -927,16 +930,17 @@ def dfa_batch_inputs(torch, eng, corpus, rows: int, salt: int):
 def multi_kernel_checks(torch, T, db, edbs) -> dict:
     """Phase 2d: kernel 7 both modes against its plain version and kernel
     A's candidates at 16 MB (10k ruleset byte masks, structured and iid;
-    also at an unaligned length with a look-back head), and the chained
-    kernel-C dfa_scan_batch against its lockstep plain version on a
-    bounded-DFA batch of 1,024 x 16 KiB rows (scalar and per-row entry
-    states). Exact."""
+    also at an unaligned length with a look-back head), and
+    dfa_scan_batch (kernel C's row mode) against its lockstep plain
+    version on a bounded-DFA batch of 1,024 x 16 KiB rows (scalar and
+    per-row entry states; the row mode with its tables in global memory
+    too). Exact."""
     from hyperscan_tpu_torch.ops import dfa as D
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
     from hyperscan_tpu_torch.ops import teddy_words as TW
 
     ft, _ct = T.device_tables(db.lit, DEVICE)
-    masks = TW.masks_tensor(db.lit.masks, DEVICE)
+    masks = TW.word_tables(db.lit.masks, DEVICE)
     errs = {"words": 0, "dfa_batch": 0}
     for kind in ("structured", "iid"):
         corpus_t = torch.from_numpy(gen_corpus(CHECK_BYTES, 2, kind)).to(
@@ -954,14 +958,18 @@ def multi_kernel_checks(torch, T, db, edbs) -> dict:
     for init in (int(eng.start_state), i_t):
         args = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
                 init, d_t, l_t)
-        a_k, f_k = D.dfa_scan_batch(*args)
         a_p, f_p = D.dfa_scan_batch_plain(*args)
-        e = max(int((a_k - a_p).abs().max()), int((f_k - f_p).abs().max()))
-        errs["dfa_batch"] = max(errs["dfa_batch"], e)
-        check(e == 0, "chained dfa_scan_batch != plain version")
+        for placement in ("shared", "global"):
+            a_k, f_k = D.dfa_scan_rows(tabs, init, d_t, l_t,
+                                       placement=placement)
+            e = max(int((a_k - a_p).abs().max()),
+                    int((f_k - f_p).abs().max()))
+            errs["dfa_batch"] = max(errs["dfa_batch"], e)
+            check(e == 0, f"dfa_scan_batch row mode ({placement} tables) "
+                  "!= plain version")
         entry = "scalar" if isinstance(init, int) else "per-row"
-        log(f"kernel check dfa_scan_batch ({entry} entry): "
-            f"{DFA_CHECK_ROWS} x {ENGINE_BLOCK} rows, "
+        log(f"kernel check dfa_scan_batch ({entry} entry, shared and "
+            f"global tables): {DFA_CHECK_ROWS} x {ENGINE_BLOCK} rows, "
             f"{int((a_p != 0).sum())} accepts: exact")
     return errs
 
@@ -1152,8 +1160,9 @@ def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
                        clock_hz) -> dict:
     """Phase 4d: kernel 7 count and list mode over each 512 MiB corpus
     (row 8 is count mode, once per shard: also timed over the 4-shard
-    segments), and the chained dfa_scan_batch over 16,384 x 16 KiB,
-    each beside its bound and its plain version (CUDA events). At these
+    segments), and dfa_scan_batch (kernel C's row mode) over 16,384 x
+    16 KiB and over its first 4,096 rows (one shard of four), each
+    beside its bound and its plain version (CUDA events). At these
     shapes every kernel is also held against its plain version (exact):
     kernel 7's per-cell counts, positions and words over each corpus;
     count mode over each of the four segments against the plain version
@@ -1166,8 +1175,8 @@ def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
     from hyperscan_tpu_torch.ops import teddy_words as TW
 
     lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
-    masks = TW.masks_tensor(db.lit.masks, DEVICE)
-    M, W = int(masks.shape[0]), int(masks.shape[1])
+    masks = TW.word_tables(db.lit.masks, DEVICE)
+    M, W = masks.M, masks.W
 
     def bound(n_bytes, lookups):
         t_b = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1244,19 +1253,32 @@ def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
     a_k, f_k = D.dfa_scan_batch(*args)
     a_p, f_p = D.dfa_scan_batch_plain(*args)
     err = max(int((a_k - a_p).abs().max()), int((f_k - f_p).abs().max()))
-    check(err == 0, f"chained dfa_scan_batch over {data.shape[0]} x "
+    check(err == 0, f"dfa_scan_batch over {data.shape[0]} x "
           f"{data.shape[1]} rows != plain version")
     log(f"kernel check dfa_scan_batch: {data.shape[0]} x {data.shape[1]} "
         f"rows, {int((a_p != 0).sum())} accepts: exact")
     out["err"]["dfa_batch"] = err
     del a_k, f_k, a_p, f_p
+    before = T.LAUNCHES["dfa_scan_rows"]
+    D.dfa_scan_batch(*args)
+    per_call = T.LAUNCHES["dfa_scan_rows"] - before
+    check(per_call == 1, f"dfa_scan_batch made {per_call} row-mode "
+          "launches in one call")
     out["dfa_batch"] = dict(
         ms=cuda_ms(torch, lambda: D.dfa_scan_batch(*args), 5),
         plain_ms=cuda_ms(torch, lambda: D.dfa_scan_batch_plain(*args), 1),
-        library_ms=None, launches_per_call=-(-data.shape[1] // DK.CHUNK),
+        library_ms=None, launches_per_call=per_call,
         # the bytes read, the int32 accept plane written; three lookups a
         # byte (b2c, trans, accept)
         **bound(n + 4 * n + tabs.nbytes + 8 * data.shape[0], 3 * n))
+    # one shard of four: 4,096 rows, where one row's serial chain of
+    # dependent lookups, not the bytes, is expected to set the time
+    rows = data.shape[0] // SHARDS_ONE_CARD
+    shard = (*args[:4], d_t[:rows], l_t[:rows])
+    n_sh = rows * data.shape[1]
+    out["dfa_batch_shard"] = dict(
+        rows=rows, ms=cuda_ms(torch, lambda: D.dfa_scan_batch(*shard), 5),
+        **bound(5 * n_sh + tabs.nbytes + 8 * rows, 3 * n_sh))
     return out
 
 
@@ -1972,9 +1994,8 @@ def main() -> int:
     fdb = flood_db(ht)
     ferr = family_kernel_checks(torch, T, dbs[10_000], fdb)
 
-    # phase 2d: kernel 7 and the chained batch DFA scan at 16 MB
+    # phase 2d: kernel 7 and the batch DFA scan at 16 MB
     merr = multi_kernel_checks(torch, T, dbs[10_000], edbs)
-    err_c = max(err_c, merr["dfa_batch"])
 
     # phase 2e: kernel 4's stage modes at 16 MB
     serr = stage_kernel_checks(torch, T, dbs[10_000])
@@ -2040,7 +2061,7 @@ def main() -> int:
     mlaunch = sh["launches"]
     log(f"sharded-path launches: {mlaunch}; literal families: "
         f"{sh['families']}")
-    for k in ("teddy_words_count", "teddy_words_list", "dfa_scan"):
+    for k in ("teddy_words_count", "teddy_words_list", "dfa_scan_rows"):
         check(mlaunch[k] > 0, f"kernel {k} was not launched on the sharded "
               "path")
     filters = {"gated": "teddy_rescan_rows", "compact": "teddy_filter_compact",
@@ -2170,12 +2191,12 @@ def main() -> int:
             + json.dumps(ft_[kind], sort_keys=True))
         for k, e in ft_[kind]["err"].items():
             ferr[k] = max(ferr[k], e)
-    # phase 4d: kernel 7 and the chained batch DFA scan
+    # phase 4d: kernel 7 and the batch DFA scan (kernel C's row mode)
     mkt = multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh, clock_hz)
     log(f"multi-device kernel times [{card}]: "
         + json.dumps(mkt, sort_keys=True))
     merr["words"] = max(merr["words"], mkt["err"]["words"])
-    err_c = max(err_c, mkt["err"]["dfa_batch"])
+    merr["dfa_batch"] = max(merr["dfa_batch"], mkt["err"]["dfa_batch"])
     # phase 4e: the stage probe of kernel 4 at 512 MiB iid
     probe = stage_probe_times(torch, T, db, runs["iid"][0], clock_hz)
     serr = max(serr, probe["err"])
@@ -2221,10 +2242,18 @@ def main() -> int:
         {"name": "dfa_scan", "route": "cuda",
          "source": "hyperscan_tpu_torch/csrc/dfa_scan.cu",
          "replaces": "hyperscan_tpu/ops/dfa_kernel.py:132",
-         "launches": elaunch["dfa_scan"] + mlaunch["dfa_scan"],
-         "max_abs_err": err_c,
+         "launches": elaunch["dfa_scan"], "max_abs_err": err_c,
          "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": None},
+        # kernel C's row mode: dfa_scan_batch of the sharded DFA path
+        {"name": "dfa_scan_rows", "route": "cuda",
+         "source": "hyperscan_tpu_torch/csrc/dfa_scan.cu",
+         "replaces": "hyperscan_tpu/ops/dfa.py:27",
+         "launches": mlaunch["dfa_scan_rows"],
+         "max_abs_err": merr["dfa_batch"],
+         "ms": mkt["dfa_batch"]["ms"], "plain_ms": mkt["dfa_batch"]["plain_ms"],
+         "bound_ms": mkt["dfa_batch"]["bound_ms"],
+         "bound_by": mkt["dfa_batch"]["bound_by"], "library_ms": None},
         {"name": "nfa_layered", "route": "cuda",
          "source": "hyperscan_tpu_torch/csrc/nfa_layered.cu",
          "replaces": "hyperscan_tpu/ops/nfa_kernel.py:476",
@@ -2262,7 +2291,7 @@ def main() -> int:
     # stage's under "stages"
     kernels.append({
         "name": "teddy_kconfirm_stage", "route": "cuda",
-        "source": "hyperscan_tpu_torch/csrc/teddy_kconfirm_stage.cu",
+        "source": "hyperscan_tpu_torch/csrc/teddy_kconfirm.cu",
         "replaces": "tools_probe_rank_bisect.py:163, "
                     "tools_probe_kconf_split.py:128",
         "launches": probe["launches"]["teddy_kconfirm_stage"],

@@ -1,45 +1,70 @@
-// Chunk-parallel DFA scan (sm_90a).
+// DFA scans (sm_90a): the chunk scan of kernel C, and its row mode, the
+// lockstep scan of a batch of rows.
 //
 // Replaces the Pallas TPU kernel _make_kernel (with its select-tree table
 // lookup _lookup) and the sparse_extract that follows it:
 // hyperscan_tpu/ops/dfa_kernel.py:92, :77, launched by the pallas_call at
-// hyperscan_tpu/ops/dfa_kernel.py:132, with hyperscan_tpu/ops/teddy.py:793.
+// hyperscan_tpu/ops/dfa_kernel.py:132, with hyperscan_tpu/ops/teddy.py:793;
+// and, in row mode, the XLA lax.scan of the lockstep batch scan
+// (hyperscan_tpu/ops/dfa.py:27 dfa_scan_batch).
 //
-// What it computes. Every chunk c has a row (start, vfrom, vto, entry)
-// and steps through positions t = 0..511 of the flat corpus at start + t.
-// Position t is live for vfrom <= t < vto; on a live position the state
-// steps, s = trans[s * C + b2c[byte]], and for t >= H a nonzero
-// accept[s] (read on the state after the step) is a record
-// (c, t, accept id). The chunk's final state is the state after its last
-// live position, its entry when none is live. Records go out through one
-// atomic counter into a `cap` buffer; the counter keeps the exact total
-// past cap. In plane mode (a non-null `plane`, an int32 array as long as the
-// corpus) a record is written instead as plane[start + t] = accept id, which
-// is the dense accept plane of the lockstep batch scan
-// (hyperscan_tpu/ops/dfa.py:27 dfa_scan_batch, an XLA lax.scan in the
-// reference): ops/dfa.py launches this kernel once per 512 bytes of its rows
-// with H = 0, each launch entering in the finals of the one before.
+// What the chunk scan computes. Every chunk c has a row (start, vfrom, vto,
+// entry) and steps through positions t = 0..511 of the flat corpus at
+// start + t. Position t is live for vfrom <= t < vto; on a live position the
+// state steps, s = trans[s * C + b2c[byte]], and for t >= H a nonzero
+// accept[s] (read on the state after the step) is a record (c, t, accept
+// id). The chunk's final state is the state after its last live position,
+// its entry when none is live. Records go out through one atomic counter
+// into a `cap` buffer; the counter keeps the exact total past cap.
 //
-// What bounds it. Each chunk step is a chain of two dependent lookups
-// (b2c, then trans) plus the accept lookup, and the halo of H bytes is
-// re-read by every chunk but a block's first. The bytes are read once
-// (n bytes at 3.35 TB/s); the lookups bound the kernel: at shared-memory
-// rate, 132 SMs x 32 lookups a clock; with tables in global memory, the
-// L2's rate for random 4-byte reads, which is lower.
+// What the row mode computes. For B rows of L bytes (row r at data + r * L)
+// with a valid length len_r and an entry state s_r: the same step over
+// positions t < len_r of the row from s_r, plane[r * L + t] = accept[s] on
+// the state after the step for t < len_r and 0 for len_r <= t < L (the
+// whole [B, L] int32 accept plane is written, zeros included), and
+// finals[r] = the state after position len_r - 1 (s_r when len_r = 0). This
+// is exact for any DFA: nothing is speculative.
 //
-// Design. One thread per chunk, so the only serial dependence is the DFA
-// recurrence itself and latency is hidden by the number of chunks in
-// flight (a 256 MiB corpus has half a million). Neighbouring threads read
-// bytes ~512 apart, so the bytes are not read from global memory by each
-// thread: a block stages 128 positions of all its 128 chunks at a time
-// into shared memory with coalesced 16-byte loads (9 per chunk row, to
-// cover any alignment), and each row has an odd stride of 37 words so a
-// warp's byte reads spread over the banks. b2c always lives in shared
-// memory; trans and accept too when they fit (the `kShared` variant),
+// What bounds them. A chunk step is a chain of two dependent lookups (b2c,
+// then trans) plus the accept lookup, and the halo of H bytes is re-read by
+// every chunk but a block's first. The bytes are read once (n bytes at 3.35
+// TB/s); the lookups bound the chunk scan: at shared-memory rate, 132 SMs x
+// 32 lookups a clock; with tables in global memory, the L2's rate for random
+// 4-byte reads, which is lower. The row mode reads n bytes and writes the 4n
+// bytes of the plane: device memory bounds it, and below that the serial
+// chain of one row (L dependent lookups) where the rows are few.
+//
+// Design of the chunk scan. One thread per chunk, so the only serial
+// dependence is the DFA recurrence itself and latency is hidden by the
+// number of chunks in flight (a 256 MiB corpus has half a million).
+// Neighbouring threads read bytes ~512 apart, so the bytes are not read from
+// global memory by each thread: a block stages 128 positions of all its 128
+// chunks at a time into shared memory with coalesced 16-byte loads (9 per
+// chunk row, to cover any alignment), and each row has an odd stride of 37
+// words so a warp's byte reads spread over the banks. b2c always lives in
+// shared memory; trans and accept too when they fit (the `kShared` variant),
 // otherwise they are read through the read-only path from global memory,
-// where a table of a few MiB stays in the 50 MB L2. None of the TPU's
-// select tree (O(rows) selects per lookup) is needed. Records are emitted
-// with one atomic per warp and step (ballot, popcount), not per record.
+// where a table of a few MiB stays in the 50 MB L2. None of the TPU's select
+// tree (O(rows) selects per lookup) is needed. Records are emitted with one
+// atomic per warp and step (ballot, popcount), not per record.
+//
+// Design of the row mode. One launch for the whole batch, one thread a row
+// over its whole length, so no host work between chunks (the batch scan was
+// once 32 launches of the chunk scan, each prepared by the host). The
+// serial chain of a row sets its time, so the chain is cut to one add and
+// one 8-byte shared load a byte: each block builds, from trans and accept, a
+// step table whose (state, class) entry holds (next state * C, accept id of
+// the next state), and a thread carries its state times C; the byte's class
+// (a shared b2c lookup) and the 16-byte load of its bytes do not depend on
+// the state and run ahead of the chain (two loads in flight a thread; the
+// rest of a row's 128-byte line comes from L1). Each thread stores its
+// row's accept ids 16 bytes at a time, zeros past the row's length
+// included, so the plane needs no memset. A block is one warp of 32 rows
+// and needs no barrier; blocks walk the row groups of a resident grid.
+// Tables too large for shared memory are read through the read-only path
+// (the chain is then a multiply and an L1/L2 load). Rows whose length is
+// not a multiple of 16 (or unaligned data) take 1-byte loads and 4-byte
+// stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,8 +100,7 @@ dfa_scan_kernel(const uint8_t* __restrict__ corpus, long long n,
                 const int32_t* __restrict__ b2c,
                 const int32_t* __restrict__ accept, int S, int C, int H,
                 int32_t* __restrict__ recs, int cap,
-                int32_t* __restrict__ total, int32_t* __restrict__ finals,
-                int32_t* __restrict__ plane) {
+                int32_t* __restrict__ total, int32_t* __restrict__ finals) {
   extern __shared__ int32_t smem[];
   uint32_t* s_stage = reinterpret_cast<uint32_t*>(smem);  // [kThreads][37]
   int32_t* s_b2c = smem + kStageWords;                    // [256]
@@ -128,10 +152,6 @@ dfa_scan_kernel(const uint8_t* __restrict__ corpus, long long n,
         state = kShared ? s_trans[idx] : __ldg(trans + idx);
         if (t >= H) aid = kShared ? s_acc[state] : __ldg(accept + state);
       }
-      if (plane != nullptr) {  // uniform across the grid
-        if (aid != 0) plane[start + t] = aid;
-        continue;
-      }
       const unsigned hits = __ballot_sync(0xffffffffu, aid != 0);
       if (hits) {
         int r0 = 0;
@@ -156,7 +176,7 @@ cudaError_t launch(const uint8_t* corpus, long long n, const int4* meta,
                    int nch, const int32_t* trans, const int32_t* b2c,
                    const int32_t* accept, int S, int C, int H, int32_t* recs,
                    int cap, int32_t* total, int32_t* finals,
-                   int32_t* plane, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const size_t smem =
       size_t(kStageWords + 256) * 4 +
       (kShared ? (size_t(S) * C + size_t(S)) * 4 : 0);
@@ -169,20 +189,141 @@ cudaError_t launch(const uint8_t* corpus, long long n, const int4* meta,
   const int blocks = (nch + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, stream>>>(corpus, n, meta, nch, trans,
                                              b2c, accept, S, C, H, recs, cap,
-                                             total, finals, plane);
+                                             total, finals);
+  return cudaGetLastError();
+}
+
+constexpr int kRowThreads = 32;  // rows a block: one warp
+constexpr int kAhead = 2;        // 16-byte loads a row keeps in flight
+
+// One step of a row in shared-table mode: `st` is the state times C, and
+// the entry of (state, class) holds (next state * C, accept id of the next
+// state), so the chain from byte to byte is one add and one 8-byte load.
+__device__ __forceinline__ int step_shared(const int2* s_step, int& st,
+                                           int cls) {
+  const int2 e = s_step[st + cls];
+  st = e.x;
+  return e.y;
+}
+
+// One step in global-table mode: `st` is the state.
+__device__ __forceinline__ int step_global(const int32_t* trans,
+                                           const int32_t* accept, int C,
+                                           int& st, int cls) {
+  st = __ldg(trans + st * C + cls);
+  return __ldg(accept + st);
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kRowThreads)
+dfa_rows_kernel(const uint8_t* __restrict__ data, int B, int L, bool vec,
+                const int32_t* __restrict__ lengths,
+                const int32_t* __restrict__ states0,
+                const int32_t* __restrict__ trans,
+                const int32_t* __restrict__ b2c,
+                const int32_t* __restrict__ accept, int S, int C,
+                int32_t* __restrict__ plane, int32_t* __restrict__ finals) {
+  extern __shared__ __align__(16) int32_t smem[];
+  int2* s_step = reinterpret_cast<int2*>(smem);  // [S * C], kShared
+  __shared__ uint8_t s_b2c[256];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 256; i += kRowThreads) s_b2c[i] = uint8_t(b2c[i]);
+  if (kShared) {
+    for (int i = lane; i < S * C; i += kRowThreads) {
+      const int nx = trans[i];
+      s_step[i] = make_int2(nx * C, accept[nx]);
+    }
+  }
+  __syncwarp();
+  auto step = [&](int& st, uint32_t byte) {
+    const int cls = s_b2c[byte];
+    return kShared ? step_shared(s_step, st, cls)
+                   : step_global(trans, accept, C, st, cls);
+  };
+
+  for (int g0 = blockIdx.x * kRowThreads; g0 < B;
+       g0 += gridDim.x * kRowThreads) {
+    const int row = g0 + lane;
+    if (row >= B) continue;
+    const int len = min(max(lengths[row], 0), L);
+    int st = kShared ? states0[row] * C : states0[row];
+    const uint8_t* src = data + (long long)row * L;
+    int32_t* dst = plane + (long long)row * L;
+    int t = 0;
+    if (vec) {
+      // 16 bytes a load, kAhead loads in flight (the row's 128-byte lines
+      // stay in L1 for the loads after the first), 4 ids a 16-byte store
+      const uint4* src16 = reinterpret_cast<const uint4*>(src);
+      int4* dst4 = reinterpret_cast<int4*>(dst);
+      const int n16 = len >> 4;
+      uint4 buf[kAhead];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k)
+        buf[k] = k < n16 ? __ldg(src16 + k) : make_uint4(0u, 0u, 0u, 0u);
+      for (int k = 0; k < n16; ++k) {
+        const uint4 cur = buf[0];
+#pragma unroll
+        for (int j = 0; j + 1 < kAhead; ++j) buf[j] = buf[j + 1];
+        buf[kAhead - 1] = k + kAhead < n16 ? __ldg(src16 + k + kAhead)
+                                           : make_uint4(0u, 0u, 0u, 0u);
+        const uint32_t w[4] = {cur.x, cur.y, cur.z, cur.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int4 out;
+          out.x = step(st, w[e] & 0xFFu);
+          out.y = step(st, (w[e] >> 8) & 0xFFu);
+          out.z = step(st, (w[e] >> 16) & 0xFFu);
+          out.w = step(st, w[e] >> 24);
+          dst4[4 * k + e] = out;
+        }
+      }
+      t = n16 << 4;
+    }
+    for (; t < len; ++t) dst[t] = step(st, __ldg(src + t));
+    // zeros past the row's length, 16 bytes a store once aligned
+    for (; t < L && (!vec || (t & 3)); ++t) dst[t] = 0;
+    for (; t + 4 <= L; t += 4)
+      *reinterpret_cast<int4*>(dst + t) = make_int4(0, 0, 0, 0);
+    for (; t < L; ++t) dst[t] = 0;
+    finals[row] = kShared ? st / C : st;
+  }
+}
+
+template <bool kShared>
+cudaError_t launch_rows(const uint8_t* data, int B, int L, bool vec,
+                        const int32_t* lengths, const int32_t* states0,
+                        const int32_t* trans, const int32_t* b2c,
+                        const int32_t* accept, int S, int C, int32_t* plane,
+                        int32_t* finals, cudaStream_t stream) {
+  const size_t smem = kShared ? size_t(S) * C * 8 : 0;
+  auto kernel = dfa_rows_kernel<kShared>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kRowThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int groups = (B + kRowThreads - 1) / kRowThreads;
+  const int fit = per_sm * sms;
+  const int grid = groups < fit ? groups : fit;
+  kernel<<<grid, kRowThreads, smem, stream>>>(data, B, L, vec, lengths,
+                                              states0, trans, b2c, accept, S,
+                                              C, plane, finals);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// `plane` null: records mode; otherwise plane mode (recs, cap and total are
-// not used).
 extern "C" int hs_dfa_scan(const void* corpus, long long n, const void* meta,
                            int nch, const void* trans, const void* b2c,
                            const void* accept, int S, int C, int H,
                            int shared_tables, void* recs, int cap,
-                           void* total, void* finals, void* plane,
-                           void* stream) {
+                           void* total, void* finals, void* stream) {
   if (nch <= 0) return int(cudaSuccess);
   const auto* cp = static_cast<const uint8_t*>(corpus);
   const auto* mp = static_cast<const int4*>(meta);
@@ -192,13 +333,40 @@ extern "C" int hs_dfa_scan(const void* corpus, long long n, const void* meta,
   auto* rp = static_cast<int32_t*>(recs);
   auto* np = static_cast<int32_t*>(total);
   auto* fp = static_cast<int32_t*>(finals);
-  auto* pp = static_cast<int32_t*>(plane);
   auto s = static_cast<cudaStream_t>(stream);
   return int(shared_tables
                  ? launch<true>(cp, n, mp, nch, tp, bp, ap, S, C, H, rp, cap,
-                                np, fp, pp, s)
+                                np, fp, s)
                  : launch<false>(cp, n, mp, nch, tp, bp, ap, S, C, H, rp,
-                                 cap, np, fp, pp, s));
+                                 cap, np, fp, s));
+}
+
+// Row mode: `data` [B, L] uint8, `lengths`/`states0`/`finals` [B] int32,
+// `plane` [B, L] int32 (every entry written).
+extern "C" int hs_dfa_scan_rows(const void* data, int B, int L,
+                                const void* lengths, const void* states0,
+                                const void* trans, const void* b2c,
+                                const void* accept, int S, int C,
+                                int shared_tables, void* plane, void* finals,
+                                void* stream) {
+  if (B <= 0 || L < 0 || C < 1 || C > 256) return int(cudaErrorInvalidValue);
+  const auto* dp = static_cast<const uint8_t*>(data);
+  const auto* lp = static_cast<const int32_t*>(lengths);
+  const auto* sp = static_cast<const int32_t*>(states0);
+  const auto* tp = static_cast<const int32_t*>(trans);
+  const auto* bp = static_cast<const int32_t*>(b2c);
+  const auto* ap = static_cast<const int32_t*>(accept);
+  auto* pp = static_cast<int32_t*>(plane);
+  auto* fp = static_cast<int32_t*>(finals);
+  auto s = static_cast<cudaStream_t>(stream);
+  // 16-byte loads and stores need every row 16-byte aligned
+  const bool vec = L % 16 == 0 && reinterpret_cast<uintptr_t>(dp) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(pp) % 16 == 0;
+  return int(shared_tables
+                 ? launch_rows<true>(dp, B, L, vec, lp, sp, tp, bp, ap, S, C,
+                                     pp, fp, s)
+                 : launch_rows<false>(dp, B, L, vec, lp, sp, tp, bp, ap, S, C,
+                                      pp, fp, s));
 }
 
 extern "C" const char* hs_dfa_scan_error(int code) {

@@ -24,27 +24,29 @@
 // (zero at and past n).
 //
 // What bounds it. Each corpus byte is read once (n bytes at 3.35 TB/s), but
-// each byte costs 1 + M*W shared-memory table lookups with class tables (M*W
-// with byte tables): at M=5, W=4 that is 21 lookups a byte against 132 SMs x
-// 32 lookups a clock, so the lookups, not device memory, bound compact and
+// each byte costs 1 + M*W shared-memory words with class tables (M*W with
+// byte tables): at M=5, W=4 that is 21 words a byte against 132 SMs x 32
+// words a clock, so the table reads, not device memory, bound compact and
 // plane mode. Survivor-row mode does that work only for the flagged rows
 // (a few percent of the corpus, or none), so there its launch and the
 // 512-byte flag read of each cell bound it.
 //
-// Design. One block per 64 KiB cell, so blocks never talk to each other (the
-// TPU grid ran cells in order; here they run in any order). The tables live
-// in shared memory (at most 8 x 4 x 256 words = 32 KiB). Each thread reads
-// 16 bytes with one vector load and takes the up to 7 bytes of look-back it
-// needs from its left neighbour's registers by a warp shuffle (teddy_filter.
-// cuh). Positions are ranked by a popcount, a warp shuffle scan and a
-// shared-memory scan across warps, so they come out ascending with no sort.
-// In survivor-row mode the block first lists its flagged rows in shared
-// memory (a block scan over the 512 flags), then gives each listed row to 8
-// threads, 32 rows a step: a row's first thread reloads the 16 bytes before
-// the row, so a row's look-back is read from the flat corpus directly (the
-// reference's packing of (predecessor, row) pairs is a TPU layout, not
-// needed here). None of the TPU's layouts (128-lane rows, halo row, rank
-// selection by matmul) are needed.
+// Design. The loop of teddy_filter.cuh: the tables in shared memory in the
+// kernels' [M][K][Wp] layout, replicated so that the lanes of a warp read
+// distinct banks, one vector load per (m, key); a resident grid whose
+// blocks stage the tables once and walk the 64 KiB cells (one block a cell
+// at a time, so blocks never talk to each other). Each thread reads 16
+// bytes with one vector load and takes the up to 7 bytes of look-back it
+// needs from its left neighbour's registers by a warp shuffle. Positions are
+// ranked by a popcount, a warp shuffle scan and a shared-memory scan across
+// warps, so they come out ascending with no sort. In survivor-row mode the
+// block first lists its flagged rows in shared memory (a block scan over the
+// 512 flags), then gives each listed row to 8 threads, 32 rows a step: a
+// row's first thread reloads the 16 bytes before the row, so a row's
+// look-back is read from the flat corpus directly (the reference's packing
+// of (predecessor, row) pairs is a TPU layout, not needed here). None of the
+// TPU's layouts (128-lane rows, halo row, rank selection by matmul) are
+// needed.
 
 #include "teddy_filter.cuh"
 
@@ -54,112 +56,132 @@ using namespace teddy;
 
 enum Mode { kCompact = 0, kPlane = 1, kRows = 2 };
 
-template <int M, bool kClasses, int kMode>
+template <int M, bool kClasses, int V, int kMode>
 __global__ void __launch_bounds__(kThreads)
 filter_kernel(const uint8_t* __restrict__ corpus, long long n,
               const uint8_t* __restrict__ b2c,
-              const uint32_t* __restrict__ tabs, int W, int capc,
+              const uint32_t* __restrict__ tabs, int H, int R, int capc,
               int32_t* __restrict__ out_pos, int32_t* __restrict__ counts,
               uint8_t* __restrict__ plane, long long plane_len,
-              const uint8_t* __restrict__ row_flags) {
+              const uint8_t* __restrict__ row_flags, int n_cells) {
   constexpr int kTab = kClasses ? 128 : 256;
-  extern __shared__ uint32_t s_tab[];  // [M][W][kTab]
+  extern __shared__ __align__(16) uint32_t s_tab[];  // [M][H][kTab][R][V]
   __shared__ uint8_t s_b2c[256];
   __shared__ int s_warp[kWarps];
   __shared__ int16_t s_rows[kMode == kRows ? kRowsPerCell : 1];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  for (int i = tid; i < M * W * kTab; i += kThreads) s_tab[i] = tabs[i];
+  stage_tables<V>(s_tab, tabs, M, kTab, H, R);
   if (kClasses) s_b2c[tid] = b2c[tid];  // kThreads == 256
   __syncthreads();
 
-  const long long cell0 = (long long)blockIdx.x * kCell;
-  int32_t* cell_out = out_pos + (long long)blockIdx.x * capc;
-  int running = 0;  // candidates of this cell before the current step
-  int n_steps = kCell / kStep;
-  int n_rows = 0;
-  if (kMode == kRows) {
-    // list the flagged rows of this cell, ascending
-    const uint8_t* f = row_flags + (long long)blockIdx.x * kRowsPerCell;
-    const int f0 = f[2 * tid] != 0;
-    const int f1 = f[2 * tid + 1] != 0;
-    const int off = block_scan(f0 + f1, s_warp, n_rows);
-    if (f0) s_rows[off] = int16_t(2 * tid);
-    if (f1) s_rows[off + f0] = int16_t(2 * tid + 1);
-    __syncthreads();
-    n_steps = (n_rows + kThreads / 8 - 1) / (kThreads / 8);
-  }
-  for (int step = 0; step < n_steps; ++step) {
-    long long p0;
-    bool reload;
+  for (int cell = blockIdx.x; cell < n_cells; cell += gridDim.x) {
+    const long long cell0 = (long long)cell * kCell;
+    int32_t* cell_out = out_pos + (long long)cell * capc;
+    int running = 0;  // candidates of this cell before the current step
+    int n_steps = kSteps;
+    int n_rows = 0;
     if (kMode == kRows) {
-      const int slot = step * (kThreads / 8) + (tid >> 3);
-      // an idle thread sits at n rounded up to 16 (aligned loads): no
-      // byte below n, so no candidate
-      p0 = slot < n_rows
-               ? cell0 + (long long)s_rows[slot] * kRowBytes + (tid & 7) * 16
-               : (n + 15) & ~15ll;
-      reload = (tid & 7) == 0;
-    } else {
-      const long long base = cell0 + (long long)step * kStep;
-      if (base >= n) break;  // uniform across the block
-      p0 = base + tid * kChunk;
-      reload = lane == 0;
+      // list the flagged rows of this cell, ascending (the scan's barriers
+      // also keep the previous cell's readers of s_rows ahead)
+      const uint8_t* f = row_flags + (long long)cell * kRowsPerCell;
+      const int f0 = f[2 * tid] != 0;
+      const int f1 = f[2 * tid + 1] != 0;
+      const int off = block_scan(f0 + f1, s_warp, n_rows);
+      if (f0) s_rows[off] = int16_t(2 * tid);
+      if (f1) s_rows[off + f0] = int16_t(2 * tid + 1);
+      __syncthreads();
+      n_steps = (n_rows + kThreads / 8 - 1) / (kThreads / 8);
     }
-    uint32_t win[6];
-    load_window(corpus, n, p0, reload, win);
-    uint32_t bits =
-        cand_bits<M, kClasses>(win, s_b2c, s_tab, W, p0, n);
-    if (kMode == kPlane) {
-      if (p0 < plane_len) {
-        uint32_t w[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const uint32_t b = bits >> (4 * k);
-          w[k] = (b & 1u) | ((b >> 1) & 1u) << 8 | ((b >> 2) & 1u) << 16 |
-                 ((b >> 3) & 1u) << 24;
-        }
-        *reinterpret_cast<uint4*>(plane + p0) =
-            make_uint4(w[0], w[1], w[2], w[3]);
+    for (int step = 0; step < n_steps; ++step) {
+      long long p0;
+      bool reload;
+      if (kMode == kRows) {
+        const int slot = step * (kThreads / 8) + (tid >> 3);
+        // an idle thread sits at n rounded up to 16 (aligned loads): no
+        // byte below n, so no candidate
+        p0 = slot < n_rows ? cell0 + (long long)s_rows[slot] * kRowBytes +
+                                 (tid & 7) * 16
+                           : (n + 15) & ~15ll;
+        reload = (tid & 7) == 0;
+      } else {
+        const long long base = cell0 + (long long)step * kStep;
+        if (base >= n) break;  // uniform across the block
+        p0 = base + tid * kChunk;
+        reload = lane == 0;
       }
-      continue;
+      uint32_t win[6];
+      load_window(corpus, n, p0, reload, win);
+      uint32_t bits =
+          cand_bits<M, kClasses, V>(win, s_b2c, s_tab, H, R, p0, n);
+      if (kMode == kPlane) {
+        if (p0 < plane_len) {
+          uint32_t w[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const uint32_t b = bits >> (4 * k);
+            w[k] = (b & 1u) | ((b >> 1) & 1u) << 8 | ((b >> 2) & 1u) << 16 |
+                   ((b >> 3) & 1u) << 24;
+          }
+          *reinterpret_cast<uint4*>(plane + p0) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        continue;
+      }
+      // block-wide exclusive scan of the per-thread candidate counts
+      int step_total;
+      int r = running + block_scan(__popc(bits), s_warp, step_total);
+      while (bits) {
+        const int j = __ffs(bits) - 1;
+        bits &= bits - 1;
+        if (r < capc) cell_out[r] = int32_t(p0 + j);
+        ++r;
+      }
+      running += step_total;
     }
-    // block-wide exclusive scan of the per-thread candidate counts
-    int step_total;
-    int r = running + block_scan(__popc(bits), s_warp, step_total);
-    while (bits) {
-      const int j = __ffs(bits) - 1;
-      bits &= bits - 1;
-      if (r < capc) cell_out[r] = int32_t(p0 + j);
-      ++r;
-    }
-    running += step_total;
+    if (kMode != kPlane && tid == 0) counts[cell] = running;
   }
-  if (kMode != kPlane && tid == 0) counts[blockIdx.x] = running;
 }
 
-template <int M, bool kClasses, int kMode>
+template <int M, bool kClasses, int V, int kMode>
 cudaError_t launch(const uint8_t* corpus, long long n, const uint8_t* b2c,
-                   const uint32_t* tabs, int W, int capc, int32_t* out_pos,
+                   const uint32_t* tabs, int Wp, int capc, int32_t* out_pos,
                    int32_t* counts, uint8_t* plane, long long plane_len,
                    const uint8_t* row_flags, int n_cells,
                    cudaStream_t stream) {
-  const size_t smem = table_bytes(M, W, kClasses);
-  auto kernel = filter_kernel<M, kClasses, kMode>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<n_cells, kThreads, smem, stream>>>(corpus, n, b2c, tabs, W, capc,
-                                              out_pos, counts, plane,
-                                              plane_len, row_flags);
+  constexpr int kTab = kClasses ? 128 : 256;
+  const int R = table_copies(M, kTab, Wp, V);
+  const size_t smem = table_bytes(M, kTab, Wp, R);
+  auto kernel = filter_kernel<M, kClasses, V, kMode>;
+  cudaError_t e;
+  const int grid = resident_grid(kernel, smem, n_cells, e);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(corpus, n, b2c, tabs, Wp / V, R,
+                                           capc, out_pos, counts, plane,
+                                           plane_len, row_flags, n_cells);
   return cudaGetLastError();
+}
+
+template <int M, bool kClasses, int kMode>
+cudaError_t launch_v(const uint8_t* c, long long n, const uint8_t* b,
+                     const uint32_t* t, int Wp, int capc, int32_t* o,
+                     int32_t* k, uint8_t* pl, long long plane_len,
+                     const uint8_t* rf, int n_cells, cudaStream_t s) {
+  switch (vector_width(Wp)) {
+    case 1:
+      return launch<M, kClasses, 1, kMode>(c, n, b, t, Wp, capc, o, k, pl,
+                                           plane_len, rf, n_cells, s);
+    case 4:
+      return launch<M, kClasses, 4, kMode>(c, n, b, t, Wp, capc, o, k, pl,
+                                           plane_len, rf, n_cells, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int kMode>
 int dispatch(const void* corpus, long long n, const void* b2c,
-             const void* tabs, int M, int W, int classes, int capc,
+             const void* tabs, int M, int Wp, int classes, int capc,
              void* out_pos, void* counts, void* plane, long long plane_len,
              const void* row_flags, int n_cells, void* stream) {
   const auto* c = static_cast<const uint8_t*>(corpus);
@@ -170,13 +192,17 @@ int dispatch(const void* corpus, long long n, const void* b2c,
   auto* pl = static_cast<uint8_t*>(plane);
   const auto* rf = static_cast<const uint8_t*>(row_flags);
   auto s = static_cast<cudaStream_t>(stream);
-#define HS_CASE(MM)                                                        \
-  case MM:                                                                 \
-    return classes ? launch<MM, true, kMode>(c, n, b, t, W, capc, o, k, pl, \
-                                             plane_len, rf, n_cells, s)    \
-                   : launch<MM, false, kMode>(c, n, b, t, W, capc, o, k,   \
-                                              pl, plane_len, rf, n_cells,  \
-                                              s);
+  // survivor-row mode runs on class tables only (the gated family's)
+  if (kMode == kRows && !classes) return int(cudaErrorInvalidValue);
+#define HS_CASE(MM)                                                           \
+  case MM:                                                                    \
+    return int(classes ? launch_v<MM, true, kMode>(c, n, b, t, Wp, capc, o,   \
+                                                   k, pl, plane_len, rf,      \
+                                                   n_cells, s)                \
+                       : launch_v<MM, false, (kMode == kRows ? kCompact       \
+                                                             : kMode)>(       \
+                             c, n, b, t, Wp, capc, o, k, pl, plane_len, rf,   \
+                             n_cells, s));
   switch (M) {
     HS_CASE(1)
     HS_CASE(2)
@@ -194,32 +220,33 @@ int dispatch(const void* corpus, long long n, const void* b2c,
 
 }  // namespace
 
+// `Wp`: the padded table width (1, 2, 4 or 8) of `tabs`, [M][K][Wp] words.
 extern "C" int hs_teddy_filter_compact(const void* corpus, long long n,
                                        const void* b2c, const void* tabs,
-                                       int M, int W, int classes, int capc,
+                                       int M, int Wp, int classes, int capc,
                                        void* out_pos, void* counts,
                                        int n_cells, void* stream) {
-  return dispatch<kCompact>(corpus, n, b2c, tabs, M, W, classes, capc,
+  return dispatch<kCompact>(corpus, n, b2c, tabs, M, Wp, classes, capc,
                             out_pos, counts, nullptr, 0, nullptr, n_cells,
                             stream);
 }
 
 extern "C" int hs_teddy_filter_plane(const void* corpus, long long n,
                                      const void* b2c, const void* tabs, int M,
-                                     int W, int classes, void* plane,
+                                     int Wp, int classes, void* plane,
                                      long long plane_len, int n_cells,
                                      void* stream) {
-  return dispatch<kPlane>(corpus, n, b2c, tabs, M, W, classes, 0, nullptr,
+  return dispatch<kPlane>(corpus, n, b2c, tabs, M, Wp, classes, 0, nullptr,
                           nullptr, plane, plane_len, nullptr, n_cells,
                           stream);
 }
 
 extern "C" int hs_teddy_rescan_rows(const void* corpus, long long n,
                                     const void* b2c, const void* tabs, int M,
-                                    int W, int classes, int capc,
+                                    int Wp, int classes, int capc,
                                     const void* row_flags, void* out_pos,
                                     void* counts, int n_cells, void* stream) {
-  return dispatch<kRows>(corpus, n, b2c, tabs, M, W, classes, capc, out_pos,
+  return dispatch<kRows>(corpus, n, b2c, tabs, M, Wp, classes, capc, out_pos,
                          counts, nullptr, 0, row_flags, n_cells, stream);
 }
 

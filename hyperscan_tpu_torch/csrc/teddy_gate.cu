@@ -21,12 +21,14 @@
 // clock, still above the byte bound, so the lookups bound it. The flags
 // written are n/128 bytes.
 //
-// Design. Kernel A's shape (one block per cell, tables in shared memory,
-// 16-byte loads, look-back by a warp shuffle; teddy_filter.cuh) with W = 1.
-// Eight threads of 16 bytes cover one row, so a warp's ballot of "any gate
-// hit" holds the flags of its four rows, and lane 0 stores them as one
-// 32-bit word. The TPU wrote an n-byte gate plane and reduced it per row in
-// XLA; here no plane exists.
+// Design. Kernel A's shape (teddy_filter.cuh: a resident grid walking the
+// 64 KiB cells, tables staged once a block, 16-byte loads, look-back by a
+// warp shuffle) with W = 1: the gate words are one word a (m, class), so the
+// loop reads them with 32-bit loads (V = 1) from 32 copies (fewer where M is
+// large), one bank a lane, and no padded words. Eight threads of 16 bytes
+// cover one row, so a warp's ballot of "any gate hit" holds the flags of its
+// four rows, and lane 0 stores them as one 32-bit word. The TPU wrote an
+// n-byte gate plane and reduced it per row in XLA; here no plane exists.
 
 #include "teddy_filter.cuh"
 
@@ -38,46 +40,50 @@ template <int M>
 __global__ void __launch_bounds__(kThreads)
 gate_kernel(const uint8_t* __restrict__ corpus, long long n,
             const uint8_t* __restrict__ b2c, const uint32_t* __restrict__ gcm,
-            uint8_t* __restrict__ flags, int32_t* __restrict__ counts) {
-  __shared__ uint32_t s_tab[M * 128];
+            int R, uint8_t* __restrict__ flags, int32_t* __restrict__ counts,
+            int n_cells) {
+  extern __shared__ __align__(16) uint32_t s_tab[];  // [M][128][R]
   __shared__ uint8_t s_b2c[256];
   __shared__ int s_warp[kWarps];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int i = tid; i < M * 128; i += kThreads) s_tab[i] = gcm[i];
+  stage_tables<1>(s_tab, gcm, M, 128, 1, R);
   s_b2c[tid] = b2c[tid];  // kThreads == 256
   __syncthreads();
 
-  const long long cell0 = (long long)blockIdx.x * kCell;
-  int flagged = 0;  // rows flagged by this warp (lane 0's count)
-  for (int step = 0; step < kCell / kStep; ++step) {
-    const long long base = cell0 + (long long)step * kStep;
-    bool any = false;
-    if (base < n) {  // uniform across the block
-      const long long p0 = base + tid * kChunk;
-      uint32_t win[6];
-      load_window(corpus, n, p0, lane == 0, win);
-      any = cand_bits<M, true>(win, s_b2c, s_tab, 1, p0, n) != 0u;
-    }
-    const unsigned bal = __ballot_sync(kFull, any);
-    if (lane == 0) {
-      uint32_t word = 0;
+  for (int cell = blockIdx.x; cell < n_cells; cell += gridDim.x) {
+    const long long cell0 = (long long)cell * kCell;
+    int flagged = 0;  // rows flagged by this warp (lane 0's count)
+    for (int step = 0; step < kSteps; ++step) {
+      const long long base = cell0 + (long long)step * kStep;
+      bool any = false;
+      if (base < n) {  // uniform across the block
+        const long long p0 = base + tid * kChunk;
+        uint32_t win[6];
+        load_window(corpus, n, p0, lane == 0, win);
+        any = cand_bits<M, true, 1>(win, s_b2c, s_tab, 1, R, p0, n) != 0u;
+      }
+      const unsigned bal = __ballot_sync(kFull, any);
+      if (lane == 0) {
+        uint32_t word = 0;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if ((bal >> (8 * r)) & 0xFFu) word |= 1u << (8 * r);
-      flagged += __popc(word);
-      *reinterpret_cast<uint32_t*>(
-          flags + (base + (long long)warp * 32 * kChunk) / kRowBytes) = word;
+        for (int r = 0; r < 4; ++r)
+          if ((bal >> (8 * r)) & 0xFFu) word |= 1u << (8 * r);
+        flagged += __popc(word);
+        *reinterpret_cast<uint32_t*>(
+            flags + (base + (long long)warp * 32 * kChunk) / kRowBytes) = word;
+      }
     }
-  }
-  if (lane == 0) s_warp[warp] = flagged;
-  __syncthreads();
-  if (tid == 0) {
-    int total = 0;
+    if (lane == 0) s_warp[warp] = flagged;
+    __syncthreads();
+    if (tid == 0) {
+      int total = 0;
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) total += s_warp[k];
-    counts[blockIdx.x] = total;
+      for (int k = 0; k < kWarps; ++k) total += s_warp[k];
+      counts[cell] = total;
+    }
+    __syncthreads();  // s_warp is written again by the next cell
   }
 }
 
@@ -85,8 +91,13 @@ template <int M>
 cudaError_t launch(const uint8_t* corpus, long long n, const uint8_t* b2c,
                    const uint32_t* gcm, uint8_t* flags, int32_t* counts,
                    int n_cells, cudaStream_t stream) {
-  gate_kernel<M><<<n_cells, kThreads, 0, stream>>>(corpus, n, b2c, gcm,
-                                                   flags, counts);
+  const int R = table_copies(M, 128, 1, 1);
+  const size_t smem = table_bytes(M, 128, 1, R);
+  cudaError_t e;
+  const int grid = resident_grid(gate_kernel<M>, smem, n_cells, e);
+  if (e != cudaSuccess) return e;
+  gate_kernel<M><<<grid, kThreads, smem, stream>>>(corpus, n, b2c, gcm, R,
+                                                   flags, counts, n_cells);
   return cudaGetLastError();
 }
 

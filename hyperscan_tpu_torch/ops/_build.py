@@ -2,10 +2,12 @@
 
 Every `csrc/*.cu` source is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, at first use, and loaded with
-ctypes (`csrc/*.cuh` holds code that several sources include). Sources that are not built yet are compiled all at once, one
-`nvcc` process each. The libraries go to `hyperscan_tpu_torch/build/`
+ctypes (`csrc/*.cuh` holds code that several sources include). Sources
+that are not built yet are compiled all at once, one `nvcc` process
+each. The libraries go to `hyperscan_tpu_torch/build/`
 under a name keyed by a hash of the source, the shared headers and the
-flags, so an edited source or header is rebuilt and an unchanged one is reused. A failed build raises
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. A failed build raises
 with the compiler's output; nothing falls back to the plain versions.
 """
 
@@ -37,7 +39,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # launches per kernel, counted by each wrapper where it launches its
 # kernel and nowhere else (a run shows it went through the kernels)
 LAUNCHES = {"teddy_filter_compact": 0, "teddy_hash_confirm": 0,
-            "dfa_scan": 0, "nfa_layered": 0, "teddy_gate": 0,
+            "dfa_scan": 0, "dfa_scan_rows": 0, "nfa_layered": 0,
+            "teddy_gate": 0,
             "teddy_rescan_rows": 0, "teddy_kconfirm": 0,
             "teddy_filter_plane": 0, "plane_extract": 0,
             "teddy_words_count": 0, "teddy_words_list": 0,

@@ -8,24 +8,21 @@ row's state frozen past its length.
 
 - For a CPU tensor it is the lockstep torch loop `dfa_scan_batch_plain`,
   which is also its plain version on the card.
-- For a CUDA tensor it is kernel C (`csrc/dfa_scan.cu`) in plane mode,
-  launched ceil(L / 512) times with no halo: launch k scans bytes
-  [512k, 512k + 512) of every row, entering in the finals of launch k - 1
-  (the init states for k = 0), and writes each accept id straight into
-  the plane at its position. The chunk rows are built on the device from
-  the previous finals, so the launches never wait for the host. A chunk
-  past its row's length has no live position and keeps its entry state.
-  Nothing is speculative, so this is exact for any DFA. A dedicated
-  lockstep kernel would run the same one thread a row with one launch;
-  chaining the existing kernel needs no new kernel code beyond its plane
-  mode.
+- For a CUDA tensor it is kernel C's row mode (`csrc/dfa_scan.cu`,
+  `dfa_scan_rows`): one launch a call, one thread a row stepping from its
+  entry state over its whole length, writing every entry of the plane
+  (zeros past each row's length), so there is no memset and no host work
+  between chunks. Nothing is speculative, so this is exact for any DFA.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from .dfa_kernel import CHUNK, DfaTables, dfa_scan_plane
+from ._build import LAUNCHES
+from .dfa_kernel import DfaTables, _lib, placement_of
 
 
 def _states0(init_state, B: int, device) -> torch.Tensor:
@@ -55,26 +52,53 @@ def dfa_scan_batch_plain(trans, byte_to_class, accept_id, init_state, data,
     return accepts.t().contiguous(), states.int()
 
 
-def dfa_scan_batch_chunks(tables: DfaTables, init_state, data, lengths):
-    """Kernel C chained over the rows' 512-byte chunks (plane mode, no
-    halo). On a CPU tensor each launch runs kernel C's plain version, so
-    the chaining itself is testable there."""
+def dfa_scan_rows(tables: DfaTables, init_state, data, lengths, *,
+                  placement: Optional[str] = None):
+    """Kernel C's row mode: the lockstep scan of every row of `data` in
+    one launch (the contract of `dfa_scan_batch`, over `tables`).
+
+    placement : "shared" or "global" table placement (CUDA only); by
+                default shared when the row mode's step table (8 bytes
+                a (state, class): the next state and its accept id) fits
+                SHARED_TABLE_LIMIT.
+    On a CPU tensor it runs the plain version over the same tables."""
+    if data.dtype != torch.uint8 or data.dim() != 2:
+        raise ValueError("data must be a [B, L] uint8 tensor")
     B, L = data.shape
     dev = data.device
+    if dev.type == "cpu":
+        return dfa_scan_batch_plain(tables.trans.view(tables.S, tables.C),
+                                    tables.b2c, tables.accept, init_state,
+                                    data, lengths)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if tables.trans.device != dev:
+        raise ValueError("tables and data lie on different devices")
+    if not 1 <= tables.C <= 256:
+        raise ValueError(f"{tables.C} byte classes outside 1..256")
+    if B * L >= 1 << 31:
+        raise ValueError("a batch must hold fewer than 2^31 bytes")
+    data = data.contiguous()
+    lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     states = _states0(init_state, B, dev)
-    plane = torch.zeros(B * L, dtype=torch.int32, device=dev)
-    if B == 0 or L == 0:
-        return plane.view(B, L), states
-    flat = data.contiguous().reshape(-1)
-    row0 = torch.arange(B, dtype=torch.int64, device=dev) * L
-    lens = lengths.long().clamp(0, L)
-    zero = torch.zeros(B, dtype=torch.int64, device=dev)
-    for k in range(-(-L // CHUNK)):
-        off = k * CHUNK
-        meta = torch.stack([row0 + off, zero, (lens - off).clamp(0, CHUNK),
-                            states.long()], 1).int()
-        states = dfa_scan_plane(flat, tables, meta, 0, plane)
-    return plane.view(B, L), states
+    plane = torch.empty((B, L), dtype=torch.int32, device=dev)
+    finals = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return plane, finals
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.hs_dfa_scan_rows(
+        data.data_ptr(), B, L, lens.data_ptr(), states.data_ptr(),
+        tables.trans.data_ptr(), tables.b2c.data_ptr(),
+        tables.accept.data_ptr(), tables.S, tables.C,
+        int(placement_of(tables, placement, 8 * tables.S * tables.C)
+            == "shared"), plane.data_ptr(),
+        finals.data_ptr(), stream)
+    if rc:
+        raise RuntimeError("dfa_scan_rows launch failed: "
+                           + lib.hs_dfa_scan_error(rc).decode())
+    LAUNCHES["dfa_scan_rows"] += 1
+    return plane, finals
 
 
 def dfa_scan_batch(trans, byte_to_class, accept_id, init_state, data,
@@ -104,4 +128,4 @@ def dfa_scan_batch(trans, byte_to_class, accept_id, init_state, data,
     tables = DfaTables(trans.reshape(-1).int().contiguous(),
                        byte_to_class.int().contiguous(),
                        accept_id.int().contiguous(), S, C)
-    return dfa_scan_batch_chunks(tables, init_state, data, lengths)
+    return dfa_scan_rows(tables, init_state, data, lengths)

@@ -27,7 +27,8 @@ id). The chunk's final state is the state after its last live position
 (its entry when none is live). The wrapper `dfa_scan_chunks` launches the
 kernel for a CUDA tensor and counts the launch in `LAUNCHES`; for a CPU
 tensor it runs the plain PyTorch version `dfa_scan_chunks_plain`, which
-is also what the kernel is held against on the card.
+is also what the kernel is held against on the card. (The same source's
+row mode is the lockstep batch scan of `ops/dfa.py`.)
 
 None of the TPU's layout is carried over (the transposed [H+CS, rows,
 128] copy of the corpus with materialised halos, group padding, the
@@ -200,8 +201,10 @@ def _lib():
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hs_dfa_scan.restype = ci
         lib.hs_dfa_scan.argtypes = [
-            vp, cll, vp, ci, vp, vp, vp, ci, ci, ci, ci, vp, ci, vp, vp, vp,
-            vp]
+            vp, cll, vp, ci, vp, vp, vp, ci, ci, ci, ci, vp, ci, vp, vp, vp]
+        lib.hs_dfa_scan_rows.restype = ci
+        lib.hs_dfa_scan_rows.argtypes = [
+            vp, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
         lib.hs_dfa_scan_error.restype = ctypes.c_char_p
         lib.hs_dfa_scan_error.argtypes = [ci]
         lib._typed = True
@@ -229,18 +232,6 @@ def dfa_scan_chunks(corpus_u8: torch.Tensor, tables: DfaTables,
     _check_meta(meta, H, capacity)
     if corpus_u8.device.type == "cpu":
         return dfa_scan_chunks_plain(corpus_u8, tables, meta, H, capacity)
-    dev = corpus_u8.device
-    recs = torch.empty((capacity, 3), dtype=torch.int32, device=dev)
-    total = torch.zeros(1, dtype=torch.int32, device=dev)
-    finals = _launch(corpus_u8, tables, meta, H, placement, recs, capacity,
-                     total, None)
-    return recs, total, finals
-
-
-def _launch(corpus_u8, tables, meta, H, placement, recs, capacity, total,
-            plane) -> torch.Tensor:
-    """Launch kernel C on a CUDA corpus (records mode, or plane mode with
-    a `plane`); returns the finals."""
     if corpus_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {corpus_u8.device}")
     if corpus_u8.data_ptr() % 16 or meta.data_ptr() % 16:
@@ -249,66 +240,38 @@ def _launch(corpus_u8, tables, meta, H, placement, recs, capacity, total,
             tables.trans.device != corpus_u8.device:
         raise ValueError("corpus, chunk rows and tables lie on different "
                          "devices")
-    if placement is None:
-        placement = ("shared" if tables.nbytes <= SHARED_TABLE_LIMIT
-                     else "global")
-    if placement not in ("shared", "global"):
-        raise ValueError(f"unknown table placement {placement!r}")
     lib = _lib()
     dev = corpus_u8.device
     nch = meta.shape[0]
+    recs = torch.empty((capacity, 3), dtype=torch.int32, device=dev)
+    total = torch.zeros(1, dtype=torch.int32, device=dev)
     finals = torch.empty(nch, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.hs_dfa_scan(
         corpus_u8.data_ptr(), corpus_u8.numel(), meta.data_ptr(), nch,
         tables.trans.data_ptr(), tables.b2c.data_ptr(),
         tables.accept.data_ptr(), tables.S, tables.C, H,
-        int(placement == "shared"),
-        None if recs is None else recs.data_ptr(), capacity,
-        None if total is None else total.data_ptr(), finals.data_ptr(),
-        None if plane is None else plane.data_ptr(), stream)
+        int(placement_of(tables, placement) == "shared"), recs.data_ptr(),
+        capacity, total.data_ptr(), finals.data_ptr(), stream)
     if rc:
         raise RuntimeError("dfa_scan launch failed: "
                            + lib.hs_dfa_scan_error(rc).decode())
     if nch:
         LAUNCHES["dfa_scan"] += 1
-    return finals
+    return recs, total, finals
 
 
-def dfa_scan_plane_plain(corpus_u8: torch.Tensor, tables: DfaTables,
-                         meta: torch.Tensor, H: int,
-                         plane: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of `dfa_scan_plane` (same contract): the
-    plain records, written into the plane."""
-    m = meta.long()
-    # records are at most the positions t >= H that are live
-    most = int((m[:, 2] - m[:, 1].clamp(min=H)).clamp(min=0).sum())
-    recs, total, finals = dfa_scan_chunks_plain(corpus_u8, tables, meta, H,
-                                                max(1, most))
-    r = recs[:int(total)].long()
-    plane[m[r[:, 0], 0] + r[:, 1]] = r[:, 2].int()
-    return finals
-
-
-def dfa_scan_plane(corpus_u8: torch.Tensor, tables: DfaTables,
-                   meta: torch.Tensor, H: int, plane: torch.Tensor
-                   ) -> torch.Tensor:
-    """Kernel C in plane mode: the chunk scan of `dfa_scan_chunks`, each
-    record (c, t, accept id) written as plane[start_c + t] = accept id
-    instead of listed (other entries are left as they are).
-
-    plane : int32 tensor of the corpus's length, on its device
-    Returns the finals, int32 [nch]."""
-    _check_corpus(corpus_u8)
-    _check_meta(meta, H, 1)
-    if plane.dtype != torch.int32 or plane.dim() != 1 or \
-            plane.numel() != corpus_u8.numel() or \
-            not plane.is_contiguous() or plane.device != corpus_u8.device:
-        raise ValueError("plane must be a contiguous int32 tensor of the "
-                         "corpus's length on its device")
-    if corpus_u8.device.type == "cpu":
-        return dfa_scan_plane_plain(corpus_u8, tables, meta, H, plane)
-    return _launch(corpus_u8, tables, meta, H, None, None, 0, None, plane)
+def placement_of(tables: DfaTables, placement: Optional[str],
+                 nbytes: Optional[int] = None) -> str:
+    """The table placement of a kernel-C launch: "shared" or "global" as
+    asked, by default shared when the `nbytes` the launch keeps in shared
+    memory (the tables' own size unless given) fit SHARED_TABLE_LIMIT."""
+    if placement is None:
+        need = tables.nbytes if nbytes is None else nbytes
+        placement = "shared" if need <= SHARED_TABLE_LIMIT else "global"
+    if placement not in ("shared", "global"):
+        raise ValueError(f"unknown table placement {placement!r}")
+    return placement
 
 
 def _run_chunks(engine, corpus_t: torch.Tensor, tables: DfaTables,

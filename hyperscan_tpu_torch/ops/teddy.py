@@ -120,14 +120,41 @@ def _class_split(masks: np.ndarray):
     return b2c, cmasks
 
 
+def padded_width(W: int) -> int:
+    """Wp: the kernels' table width for W words, 1, 2, 4 or 8."""
+    if not 1 <= W <= 8:
+        raise ValueError(f"W={W} bucket words outside 1..8")
+    return 1 if W == 1 else 2 if W == 2 else 4 if W <= 4 else 8
+
+
+def pack_tables(tab: torch.Tensor) -> torch.Tensor:
+    """The kernels' layout of [M, W, K] int32 filter tables: [M, K, Wp],
+    the W words of one (m, key) side by side and zero-padded to Wp
+    (`padded_width`), so a kernel reads them with one vector load. A
+    permutation plus zero padding: packed[m, k, w] = tab[m, w, k] for
+    w < W, 0 for W <= w < Wp."""
+    M, W, K = (int(d) for d in tab.shape)
+    out = tab.new_zeros((M, K, padded_width(W)))
+    out[:, :, :W] = tab.permute(0, 2, 1)
+    return out
+
+
 @dataclasses.dataclass
 class FilterTables:
     """The filter's tables on one device: the byte tables always, the
-    class tables when the alphabet compresses to 128 classes or fewer."""
+    class tables when the alphabet compresses to 128 classes or fewer.
+
+    `masks` and `cmasks` are [M, W, K] (K = 256 bytes or 128 classes):
+    word w of suffix offset m and key k, as the plain versions read them.
+    `packed` and `cpacked` hold the same words in the kernels' layout
+    (`pack_tables`), built once beside them by `filter_tables`; tables
+    made without them (a plain version's input) cannot feed a kernel."""
 
     masks: torch.Tensor  # [M, W, 256] int32
     b2c: Optional[torch.Tensor]  # [256] uint8 byte -> class id
     cmasks: Optional[torch.Tensor]  # [M, W, 128] int32
+    packed: Optional[torch.Tensor] = None  # [M, 256, Wp] int32
+    cpacked: Optional[torch.Tensor] = None  # [M, 128, Wp] int32
 
     @property
     def M(self) -> int:
@@ -136,6 +163,14 @@ class FilterTables:
     @property
     def W(self) -> int:
         return int(self.masks.shape[1])
+
+
+def filter_tables(masks: torch.Tensor, b2c: Optional[torch.Tensor] = None,
+                  cmasks: Optional[torch.Tensor] = None) -> FilterTables:
+    """FilterTables with the kernels' layout of each table built beside
+    it."""
+    return FilterTables(masks, b2c, cmasks, pack_tables(masks),
+                        None if cmasks is None else pack_tables(cmasks))
 
 
 @dataclasses.dataclass
@@ -169,12 +204,12 @@ def device_tables(lit, device) -> Tuple[FilterTables, ConfirmTables]:
         split = _class_split(masks)
         if split is not None:
             b2c = np.concatenate([split[0][0], split[0][1]]).astype(np.uint8)
-            ft = FilterTables(
+            ft = filter_tables(
                 torch.from_numpy(masks).to(device),
                 torch.from_numpy(b2c).to(device),
                 torch.from_numpy(np.ascontiguousarray(split[1])).to(device))
         else:
-            ft = FilterTables(torch.from_numpy(masks).to(device), None, None)
+            ft = filter_tables(torch.from_numpy(masks).to(device))
         groups, parts, off = [], [], 0
         for (cl, mlo, mhi, slots, _dummy, probes) in confirm_device_tables(lit):
             T = int(slots.shape[0])
@@ -309,17 +344,20 @@ def _on_card(corpus_u8: torch.Tensor, tables: FilterTables,
         raise ValueError(f"unsupported device {corpus_u8.device}")
     if corpus_u8.data_ptr() % 16:
         raise ValueError("corpus must be 16-byte aligned (vector loads)")
-    tab = tables.cmasks if use_classes else tables.masks
+    tab = tables.cpacked if use_classes else tables.packed
+    if tab is None:
+        raise ValueError("tables without the kernels' layout (build them "
+                         "with filter_tables)")
     if tab.device != corpus_u8.device:
         raise ValueError("tables and corpus lie on different devices")
     return True
 
 
 def _table_args(tables: FilterTables, use_classes: bool):
-    """(b2c pointer or None, table pointer, M, W, classes flag)."""
-    tab = tables.cmasks if use_classes else tables.masks
+    """(b2c pointer or None, packed table pointer, M, Wp, classes flag)."""
+    tab = tables.cpacked if use_classes else tables.packed
     return (tables.b2c.data_ptr() if use_classes else None, tab.data_ptr(),
-            tables.M, tables.W, int(use_classes))
+            tables.M, int(tab.shape[2]), int(use_classes))
 
 
 def _raise_on(rc: int, lib, what: str) -> None:

@@ -55,9 +55,10 @@ class GateTables:
     @property
     def as_filter(self) -> FilterTables:
         """The gate as a one-word class-table filter (W = 1), the form
-        the filter's plain version and checks take."""
+        the filter's plain version and checks take. At W = 1 the kernels'
+        [M, K, Wp] layout is `gcm` itself (a view: no padded words)."""
         g = self.gcm[:, None, :]
-        return FilterTables(g, self.b2c, g)
+        return FilterTables(g, self.b2c, g, None, self.gcm[:, :, None])
 
 
 def device_gate_table(lit, device) -> Optional[GateTables]:

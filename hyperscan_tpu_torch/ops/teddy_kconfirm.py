@@ -4,9 +4,9 @@ confirm inside the kernel, over bucket-row confirm tables.
 Reference counterpart: the in-kernel confirm of the JAX package
 (`_confirm_epilogue`, hyperscan_tpu/ops/teddy.py:258, run by the
 pallas_call at :1081), its tables `dev_confirm_planes` (:1506) and its
-combine `kconf_combine` (:1156). Kernel: `csrc/teddy_kconfirm.cuh`,
-built as `csrc/teddy_kconfirm.cu` (stage 3) and
-`csrc/teddy_kconfirm_stage.cu` (the stage modes).
+combine `kconf_combine` (:1156). Kernel: `csrc/teddy_kconfirm.cu`, one
+library for the scan path and the stage modes (the stage is a kernel
+argument).
 
 The tables are the reference's bucket rows: per confirm group, every
 distinct masked tail value lives in row `hash & (t_rows - 1)` with the
@@ -278,25 +278,20 @@ def filter_kconfirm_stage_plain(corpus_u8: torch.Tensor,
     return cand.int(), _as_i32(chk), conf.int()
 
 
-def _lib(stage: int):
-    """Stage 3's library (the scan path's), or the stage modes' own."""
+def _lib():
     from ._build import library
 
-    name = "teddy_kconfirm" if stage == 3 else "teddy_kconfirm_stage"
-    lib = library(name)
+    lib = library("teddy_kconfirm")
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn = getattr(lib, f"hs_{name}")
-        fn.restype = ci
-        # stage 3 takes the pair buffers, the stage modes a checksum
-        # buffer and the stage
-        fn.argtypes = [vp, cll, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp, vp,
-                       vp] + ([vp, vp] if stage == 3 else [vp, ci]) + [ci, vp]
-        err = getattr(lib, f"hs_{name}_error")
-        err.restype = ctypes.c_char_p
-        err.argtypes = [ci]
+        lib.hs_teddy_kconfirm.restype = ci
+        lib.hs_teddy_kconfirm.argtypes = [
+            vp, cll, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp, ci, vp, vp, vp,
+            vp, vp, ci, vp]
+        lib.hs_teddy_kconfirm_error.restype = ctypes.c_char_p
+        lib.hs_teddy_kconfirm_error.argtypes = [ci]
         lib._typed = True
-    return getattr(lib, f"hs_{name}"), getattr(lib, f"hs_{name}_error")
+    return lib
 
 
 def filter_kconfirm(corpus_u8: torch.Tensor, tables: FilterTables,
@@ -323,7 +318,7 @@ def filter_kconfirm(corpus_u8: torch.Tensor, tables: FilterTables,
     if kt.sigs.device != corpus_u8.device:
         raise ValueError("confirm tables and corpus lie on different "
                          "devices")
-    launch, error = _lib(stage)
+    lib = _lib()
     n = corpus_u8.numel()
     n_cells = _n_cells(n)
     dev = corpus_u8.device
@@ -334,19 +329,19 @@ def filter_kconfirm(corpus_u8: torch.Tensor, tables: FilterTables,
                               device=dev)
         out_cls = torch.empty((n_cells, CAPC2), dtype=torch.int32,
                               device=dev)
-        bufs = (out_pos.data_ptr(), out_cls.data_ptr())
+        bufs = (out_pos.data_ptr(), out_cls.data_ptr(), None)
     else:
         chk = torch.empty(n_cells, dtype=torch.int32, device=dev)
-        bufs = (chk.data_ptr(), stage)
+        bufs = (None, None, chk.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = launch(
+    rc = lib.hs_teddy_kconfirm(
         corpus_u8.data_ptr(), n, *_table_args(tables, use_classes),
         kt.meta.data_ptr(), len(kt.groups), kt.sigs.data_ptr(),
-        kt.fills.data_ptr(), kt.cls.data_ptr(), cand.data_ptr(),
+        kt.fills.data_ptr(), kt.cls.data_ptr(), stage, cand.data_ptr(),
         conf.data_ptr(), *bufs, n_cells, stream)
     if rc:
         raise RuntimeError("teddy_kconfirm launch failed: "
-                           + error(rc).decode())
+                           + lib.hs_teddy_kconfirm_error(rc).decode())
     if stage == 3:
         LAUNCHES["teddy_kconfirm"] += 1
         return cand, conf, out_pos, out_cls

@@ -18,8 +18,10 @@ in ascending order. Both count their launches in `LAUNCHES`; for a CPU
 tensor they run the plain PyTorch version `filter_words_plain`, which is
 also what the kernel is held against on the card.
 
-The masks are the raw `[M, W, 256]` int32 byte tables (`lit.masks`), with
-the sign bit in use: words are compared bitwise, never as ordered values.
+The tables are `FilterTables` of the byte tables only (`word_tables`):
+the raw `[M, W, 256]` int32 masks (`lit.masks`), which the plain version
+reads, and their `[M, 256, Wp]` packing, which the kernel reads. The sign
+bit is in use: words are compared bitwise, never as ordered values.
 The corpus is a flat uint8 tensor; the first `start` bytes of it are
 look-back only (a shard's view of the bytes before its segment). The
 reference's 128-lane rows with a zero halo row and its `bucket_up` shapes
@@ -38,16 +40,19 @@ import numpy as np
 import torch
 
 from ._build import LAUNCHES
-from .teddy import (_PLAIN_CHUNK_CELLS, CELL, _check_corpus, _n_cells, _p2,
-                    get_capacity_hint, set_capacity_hint)
+from .teddy import (_PLAIN_CHUNK_CELLS, CELL, FilterTables, _check_corpus,
+                    _n_cells, _p2, filter_tables, get_capacity_hint,
+                    set_capacity_hint)
 
 HINT_KEY = "teddy"  # the learned list capacity (reference: "teddy")
 
 
-def _check(corpus_u8: torch.Tensor, masks: torch.Tensor, start: int) -> bool:
+def _check(corpus_u8: torch.Tensor, tables: FilterTables,
+           start: int) -> bool:
     """Check a kernel-7 call's inputs; True when the kernel runs (a CUDA
     corpus), False when the plain version does (a CPU one)."""
     _check_corpus(corpus_u8)
+    masks = tables.masks
     if masks.dtype != torch.int32 or masks.dim() != 3 or \
             masks.shape[2] != 256 or not masks.is_contiguous():
         raise ValueError("masks must be a contiguous int32 [M, W, 256] "
@@ -62,6 +67,9 @@ def _check(corpus_u8: torch.Tensor, masks: torch.Tensor, start: int) -> bool:
         return False
     if corpus_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {corpus_u8.device}")
+    if tables.packed is None:
+        raise ValueError("tables without the kernel's layout (build them "
+                         "with word_tables)")
     if corpus_u8.data_ptr() % 16:
         raise ValueError("corpus must be 16-byte aligned (vector loads)")
     return True
@@ -88,12 +96,13 @@ def _words_plain(corpus_u8: torch.Tensor, masks: torch.Tensor, lo: int,
     return torch.stack(out)
 
 
-def filter_words_plain(corpus_u8: torch.Tensor, masks: torch.Tensor,
+def filter_words_plain(corpus_u8: torch.Tensor, tables: FilterTables,
                        start: int = 0):
     """Plain PyTorch version of kernel 7, both modes at once: returns
     (counts int32 [n_cells], positions int32 [total] ascending, words
     int32 [W, total]); positions are p - start. Works chunk by chunk, so
     its memory stays bounded by the corpus size and the candidates."""
+    masks = tables.masks
     n = corpus_u8.numel()
     dev = corpus_u8.device
     W = int(masks.shape[1])
@@ -124,10 +133,10 @@ def _lib():
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hs_teddy_words_count.restype = ci
         lib.hs_teddy_words_count.argtypes = [
-            vp, cll, cll, vp, ci, ci, vp, ci, vp]
+            vp, cll, cll, vp, ci, ci, ci, vp, ci, vp]
         lib.hs_teddy_words_list.restype = ci
         lib.hs_teddy_words_list.argtypes = [
-            vp, cll, cll, vp, ci, ci, vp, cll, vp, vp, ci, vp]
+            vp, cll, cll, vp, ci, ci, ci, vp, cll, vp, vp, ci, vp]
         lib.hs_teddy_words_error.restype = ctypes.c_char_p
         lib.hs_teddy_words_error.argtypes = [ci]
         lib._typed = True
@@ -140,28 +149,33 @@ def _raise_on(rc: int, lib, what: str) -> None:
                            + lib.hs_teddy_words_error(rc).decode())
 
 
-def filter_words_count(corpus_u8: torch.Tensor, masks: torch.Tensor,
+def _packed_args(tables: FilterTables):
+    """(packed table pointer, M, W, Wp) of the kernel's call."""
+    return (tables.packed.data_ptr(), tables.M, tables.W,
+            int(tables.packed.shape[2]))
+
+
+def filter_words_count(corpus_u8: torch.Tensor, tables: FilterTables,
                        start: int = 0) -> torch.Tensor:
     """Kernel 7, count mode: int32 [n_cells] (n_cells = max(1,
     ceil(n / 65536))), the exact number of candidates among the
     positions start <= p < n of each 64 KiB cell of the tensor."""
-    if not _check(corpus_u8, masks, start):
-        return filter_words_plain(corpus_u8, masks, start)[0]
+    if not _check(corpus_u8, tables, start):
+        return filter_words_plain(corpus_u8, tables, start)[0]
     lib = _lib()
     n = corpus_u8.numel()
     counts = torch.empty(_n_cells(n), dtype=torch.int32,
                          device=corpus_u8.device)
     stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
     rc = lib.hs_teddy_words_count(
-        corpus_u8.data_ptr(), n, start, masks.data_ptr(),
-        int(masks.shape[0]), int(masks.shape[1]), counts.data_ptr(),
-        counts.numel(), stream)
+        corpus_u8.data_ptr(), n, start, *_packed_args(tables),
+        counts.data_ptr(), counts.numel(), stream)
     _raise_on(rc, lib, "teddy_words (count)")
     LAUNCHES["teddy_words_count"] += 1
     return counts
 
 
-def filter_words_list(corpus_u8: torch.Tensor, masks: torch.Tensor,
+def filter_words_list(corpus_u8: torch.Tensor, tables: FilterTables,
                       counts: torch.Tensor, cap: int, start: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 7, list mode: the first `cap` candidates of the positions
@@ -173,13 +187,13 @@ def filter_words_list(corpus_u8: torch.Tensor, masks: torch.Tensor,
     slots past the total hold 0."""
     if cap < 1:
         raise ValueError("cap must be positive")
-    on_card = _check(corpus_u8, masks, start)
+    on_card = _check(corpus_u8, tables, start)
     dev = corpus_u8.device
-    W = int(masks.shape[1])
+    W = tables.W
     pos = torch.zeros(cap, dtype=torch.int32, device=dev)
     words = torch.zeros((W, cap), dtype=torch.int32, device=dev)
     if not on_card:
-        _c, p, w = filter_words_plain(corpus_u8, masks, start)
+        _c, p, w = filter_words_plain(corpus_u8, tables, start)
         k = min(cap, p.numel())
         pos[:k] = p[:k]
         words[:, :k] = w[:, :k]
@@ -193,22 +207,22 @@ def filter_words_list(corpus_u8: torch.Tensor, masks: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.hs_teddy_words_list(
-        corpus_u8.data_ptr(), corpus_u8.numel(), start, masks.data_ptr(),
-        int(masks.shape[0]), W, first_rank.data_ptr(), cap, pos.data_ptr(),
-        words.data_ptr(), counts.numel(), stream)
+        corpus_u8.data_ptr(), corpus_u8.numel(), start, *_packed_args(tables),
+        first_rank.data_ptr(), cap, pos.data_ptr(), words.data_ptr(),
+        counts.numel(), stream)
     _raise_on(rc, lib, "teddy_words (list)")
     LAUNCHES["teddy_words_list"] += 1
     return pos, words
 
 
-def masks_tensor(masks: np.ndarray, device) -> torch.Tensor:
-    """The [M, W, 256] int32 byte tables (`lit.masks`) as a contiguous
-    tensor on `device`."""
-    return torch.from_numpy(
-        np.ascontiguousarray(masks, dtype=np.int32).copy()).to(device)
+def word_tables(masks: np.ndarray, device) -> FilterTables:
+    """The [M, W, 256] int32 byte tables (`lit.masks`) on `device`, with
+    the kernel's [M, 256, Wp] layout built beside them."""
+    return filter_tables(torch.from_numpy(
+        np.ascontiguousarray(masks, dtype=np.int32).copy()).to(device))
 
 
-def teddy_scan_tensor(corpus_u8: torch.Tensor, masks: torch.Tensor,
+def teddy_scan_tensor(corpus_u8: torch.Tensor, tables: FilterTables,
                       capacity: int = 1 << 14, hint_obj=None
                       ) -> Tuple[int, np.ndarray, np.ndarray]:
     """Filter a device-resident flat corpus (the counterpart of
@@ -220,10 +234,10 @@ def teddy_scan_tensor(corpus_u8: torch.Tensor, masks: torch.Tensor,
     Returns (total, pos[:k] int32 ascending, words[W, k] int32) as numpy,
     k = min(total, capacity) = total: no candidate is dropped."""
     cap = max(capacity, get_capacity_hint(hint_obj, HINT_KEY), 1)
-    counts = filter_words_count(corpus_u8, masks)
+    counts = filter_words_count(corpus_u8, tables)
     total_t = counts.long().sum()
     while True:
-        pos, words = filter_words_list(corpus_u8, masks, counts, cap)
+        pos, words = filter_words_list(corpus_u8, tables, counts, cap)
         total = int(total_t)
         if total <= cap:
             break
@@ -244,4 +258,4 @@ def teddy_scan(corpus: np.ndarray, masks, capacity: int = 1 << 14,
 
     dev = resolve_device(device)
     return teddy_scan_tensor(corpus_tensor(corpus, dev),
-                             masks_tensor(masks, dev), capacity, hint_obj)
+                             word_tables(masks, dev), capacity, hint_obj)

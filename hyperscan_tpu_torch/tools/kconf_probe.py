@@ -17,9 +17,12 @@ corpus it times, on the card:
 Kernel times are CUDA-event means after one warm-up call; the end-to-end
 time is wall-clock. Every line gives ms and GB/s of corpus.
 
+It first prints the fill of kernel 4's bucket rows per confirm group
+(`--fills` stops there, and needs no card).
+
 Usage, on a machine with a CUDA card:
 
-    python3 tools_torch_probe_kconfirm.py [--mb 512] [--reps 10]
+    python3 tools_torch_probe_kconfirm.py [--mb 512] [--reps 10] [--fills]
 """
 
 from __future__ import annotations
@@ -117,6 +120,26 @@ def stage_times(db, corpus: np.ndarray, reps: int = 10,
             "n_bytes": n, "groups": len(kt.groups), "classes": uc}
 
 
+def row_fills(lit) -> list:
+    """The fill of kernel 4's bucket rows (`confirm_planes`' tables, read
+    on the CPU), one dict per confirm group: its tail length cl, rows,
+    entries, and the mean, median, 90th percentile and largest fill of
+    its rows (each row holds 128 slots)."""
+    import torch
+
+    from ..ops import teddy_kconfirm as K
+
+    kt = K.confirm_planes(lit, "cpu")
+    out = []
+    for (cl, _mlo, _mhi, t_rows, base) in (kt.groups if kt else ()):
+        f = kt.fills[base // 128:base // 128 + t_rows].double()
+        out.append({"cl": cl, "rows": t_rows, "entries": int(f.sum()),
+                    "mean": float(f.mean()), "p50": float(f.median()),
+                    "p90": float(torch.quantile(f, 0.9)),
+                    "max": int(f.max())})
+    return out
+
+
 def report(res: dict, card: str) -> list:
     """One line per variant: ms and GB/s of corpus, with the card."""
     n = res["n_bytes"]
@@ -130,6 +153,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--patterns", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fills", action="store_true",
+                    help="print the bucket rows' fill and stop (no card "
+                         "needed)")
     args = ap.parse_args(argv)
 
     import hyperscan_tpu_torch as ht
@@ -139,6 +165,12 @@ def main(argv=None) -> int:
     db = ht.compile_multi(pats, ids=ids)
     print(f"compiled {args.patterns} patterns in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for g in row_fills(db.lit):
+        print("bucket rows " + " ".join(
+            f"{k}={v:.1f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in g.items()), flush=True)
+    if args.fills:
+        return 0
     corpus = gen_corpus(args.mb << 20, 1, "iid")
     res = stage_times(db, corpus, args.reps, args.device)
     card = subprocess.run(

@@ -327,7 +327,7 @@ def test_scan_each_family_on_card_counts_launches(card, family):
     assert len(got) >= 50
 
 
-# --- the multi-device path: kernel 7 (teddy_words), the chained kernel-C
+# --- the multi-device path: kernel 7 (teddy_words), kernel C's row-mode
 # --- batch scan, and a 4-shard mesh on one card ----------------------------
 
 from hyperscan_tpu_torch import parallel as P  # noqa: E402
@@ -344,7 +344,7 @@ WORD_PATS = (["attack%d" % i for i in range(300)]  # W = 2 words
 @pytest.mark.parametrize("n", [(1 << 20) + 13, 65536 + 7, 100, 1, 0])
 def test_teddy_words_kernel_equals_plain(card, n):
     db = ht.compile_multi(WORD_PATS, ids=list(range(len(WORD_PATS))))
-    masks = TW.masks_tensor(db.lit.masks, card)
+    masks = TW.word_tables(db.lit.masks, card)
     c = _corpus(n, 8)
     for off in range(0, n - 9, 1001):
         c[off:off + 8] = np.frombuffer(b"attack%02d" % (off % 97), np.uint8)
@@ -387,7 +387,8 @@ def test_chained_dfa_scan_batch_equals_plain(card, init):
             init_state, d_t, l_t)
     T.reset_launches()
     a_k, f_k = D.dfa_scan_batch(*args)
-    assert T.LAUNCHES["dfa_scan"] == 3  # ceil(1100 / 512)
+    assert T.LAUNCHES["dfa_scan_rows"] == 1  # one launch a call
+    assert T.LAUNCHES["dfa_scan"] == 0
     a_p, f_p = D.dfa_scan_batch_plain(*args)
     assert torch.equal(a_k, a_p) and torch.equal(f_k, f_p)
     assert int(MT.count_matches(a_k)) > 20
@@ -529,3 +530,105 @@ def test_stream_engines_on_card_equal_cpu(card):
         assert got == want
         assert T.LAUNCHES["dfa_scan"] > 0
     assert any(m[0] == 1 and m[2] == 5003 for m in want[1][0])
+
+
+# --- the redesigned kernels: kernel 4 over the packed tables at any (M, W),
+# --- and kernel C's row mode --------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+
+def _reshaped_tables(masks: np.ndarray, M: int, W: int):
+    """Tables of depth M and W words whose candidates include those of
+    `masks` [M0, W0, 256]: words folded by OR when W < W0, copies rotated
+    by a different amount at each suffix offset added when W > W0 (they
+    pass other positions), suffix offsets dropped when M < M0, all-ones
+    ones added when M > M0 (each a superset, so planted matches still
+    pass)."""
+    M0, W0, _ = masks.shape
+    u = masks.astype(np.int64) & 0xFFFFFFFF
+    out = np.zeros((M, W, 256), np.int64)
+    for m in range(M):
+        for w in range(W):
+            if m >= M0:
+                out[m, w] = 0xFFFFFFFF
+            elif W < W0:
+                out[m, w] = np.bitwise_or.reduce(u[m, w::W], axis=0)
+            else:
+                r = (w // W0) * (m + 1) % 32
+                v = u[m, w % W0]
+                out[m, w] = ((v << r) | (v >> (32 - r))) & 0xFFFFFFFF
+    out = out.astype(np.uint32).view(np.int32)
+    split = T._class_split(out)
+    b2c = np.concatenate([split[0][0], split[0][1]]).astype(np.uint8)
+    return out, b2c, split[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("M", range(1, 9))
+def test_kconfirm_any_shape_equals_plain(card, M, W):
+    """Kernel 4 at every suffix depth and at W in {1, 3, 4, 5, 8} (every
+    padded width and vector width), both table kinds, with the groups of
+    a real database and with none (G = 0), at a length that is neither a
+    multiple of 16 nor of 4 KiB: stage 3 and stages 0-2 equal their
+    plain versions."""
+    db = ht.compile_multi(KC_PATS, ids=list(range(len(KC_PATS))))
+    masks, b2c, cmasks = _reshaped_tables(
+        np.ascontiguousarray(db.lit.masks, np.int32), M, W)
+    ft = T.filter_tables(torch.from_numpy(masks).to(card),
+                         torch.from_numpy(b2c).to(card),
+                         torch.from_numpy(cmasks).to(card))
+    kt = K.confirm_planes(db.lit, card)
+    corpus = torch.from_numpy(_gated_corpus(3 * 65536 + 4099, 7)).to(card)
+    for groups in (kt, dataclasses.replace(kt, groups=())):
+        for uc in (True, False):
+            out_k = K.filter_kconfirm(corpus, ft, groups, use_classes=uc)
+            out_p = K.filter_kconfirm_plain(corpus, ft, groups,
+                                            use_classes=uc)
+            assert torch.equal(out_k[0], out_p[0])
+            _same_cells(out_k[2], out_k[1], out_p[2], out_p[1], K.CAPC2)
+            _same_cells(out_k[3], out_k[1], out_p[3], out_p[1], K.CAPC2)
+            for stage in (0, 1, 2):
+                k = K.filter_kconfirm(corpus, ft, groups, use_classes=uc,
+                                      stage=stage)
+                p = K.filter_kconfirm_stage_plain(corpus, ft, groups,
+                                                  use_classes=uc,
+                                                  stage=stage)
+                for a, b in zip(k, p):
+                    assert torch.equal(a, b), (stage, uc)
+            if groups is kt:
+                assert int(out_p[1].sum()) > 10
+            else:
+                assert int(out_p[1].sum()) == 0
+    assert int(out_p[0].sum()) > 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(1, 1000), (45, 1100), (16_384, 1000)])
+@pytest.mark.parametrize("placement", ["shared", "global"])
+def test_dfa_scan_rows_kernel_equals_plain(card, B, L, placement):
+    """Kernel C's row mode: one launch a call, equal to the lockstep plain
+    version at a length that is not a multiple of the tile, with rows of
+    length 0 and per-row entry states, the tables in shared and in global
+    memory."""
+    eng = _dfa_engine([r"ab[cd]{2,6}ef", r"[0-9]{3}-[0-9]{4}",
+                       r"GET /[a-z]{1,12} "])
+    rng = np.random.default_rng(B)
+    blocks = _engine_blocks(12, [L] * min(B, 64))
+    data = np.stack([np.frombuffer(blocks[i % len(blocks)], np.uint8)
+                     for i in range(B)])
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[:3] = [L, 0, 1][:B]
+    tabs = DK.device_tables(eng, card)
+    init = torch.from_numpy(rng.integers(0, eng.num_states, B)
+                            .astype(np.int32)).to(card)
+    d_t = torch.from_numpy(data).to(card)
+    l_t = torch.from_numpy(lengths).to(card)
+    T.reset_launches()
+    a_k, f_k = D.dfa_scan_rows(tabs, init, d_t, l_t, placement=placement)
+    assert T.LAUNCHES["dfa_scan_rows"] == 1
+    a_p, f_p = D.dfa_scan_batch_plain(tabs.trans.view(tabs.S, tabs.C),
+                                      tabs.b2c, tabs.accept, init, d_t, l_t)
+    assert torch.equal(a_k, a_p) and torch.equal(f_k, f_p)
+    assert int((a_p != 0).sum()) > B // 2

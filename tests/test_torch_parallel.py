@@ -290,7 +290,7 @@ def test_teddy_scan_equals_reference(teddy_masks, n):
 def test_teddy_words_modes_and_lookback(teddy_masks):
     """Count mode over a tail after a look-back head equals the list's
     count; list mode clamps at cap but never loses the count."""
-    masks = TW.masks_tensor(teddy_masks, "cpu")
+    masks = TW.word_tables(teddy_masks, "cpu")
     rng = np.random.default_rng(2)
     c = rng.integers(0, 256, 3 * PT.CELL + 5).astype(np.uint8)
     for off in range(0, len(c) - 9, 1001):
@@ -341,11 +341,12 @@ def _dfa_batch(B: int, L: int, seed: int):
 @pytest.mark.parametrize("init", ["scalar", "rows"])
 def test_dfa_scan_batch_and_matches_equal_reference(dfa_engines, which,
                                                     init):
-    """dfa_scan_batch (the lockstep loop, and kernel C chained over
-    512-byte chunks with its plain version), extract_matches and
-    count_matches against the reference, with rows shorter than L."""
+    """dfa_scan_batch (the lockstep loop, and kernel C's row mode over
+    the engine's device tables, whose CPU branch is the plain version),
+    extract_matches and count_matches against the reference, with rows
+    shorter than L."""
     r_eng, p_eng = dfa_engines[which]
-    B, L = 12, 1100  # three chained launches, the last one partial
+    B, L = 12, 1100  # rows of length 0, 1 and L among them
     data, lengths = _dfa_batch(B, L, 3 + which)
     S = r_eng.trans.shape[0]
     init_state = (int(r_eng.start_state) if init == "scalar" else
@@ -362,7 +363,7 @@ def test_dfa_scan_batch_and_matches_equal_reference(dfa_engines, which,
     i_t = torch.as_tensor(init_state)
     pa, pf = PD.dfa_scan_batch(tabs.trans.view(tabs.S, tabs.C), tabs.b2c,
                                tabs.accept, i_t, d_t, l_t)
-    ca, cf = PD.dfa_scan_batch_chunks(tabs, i_t, d_t, l_t)
+    ca, cf = PD.dfa_scan_rows(tabs, i_t, d_t, l_t)
     for a, f in ((pa, pf), (ca, cf)):
         assert a.dtype == torch.int32 and f.dtype == torch.int32
         assert np.array_equal(a.numpy(), ra)
