@@ -14,18 +14,22 @@ Phases, in order; any failure exits non-zero:
    tables) and kernel B (teddy_hash_confirm) against their plain PyTorch
    versions on the card. Then compile one database per general-engine
    route (the JAX package's per-kernel bench sets) and hold kernel C
-   (dfa_scan: a bounded DFA with shared and with global tables, H = 0
-   with carried entry states, the lazy-DFA core of a cyclic NFA) and
-   kernel D (nfa_layered: EOD accepts, P > 48) against theirs over a
-   16 MB batch of blocks. Then (2c) the literal families' kernels on the
-   10k ruleset at 16 MB, structured and iid, and on a flood database
-   (`aaaa` over a run of `a`): the gate (row flags, K), the survivor-row
+   (dfa_scan: a bounded DFA from its start state and from carried
+   states, H = 0 with carried entry states, the lazy-DFA core of a
+   cyclic NFA; each with shared and with global tables, and at a cap
+   below its total, which must stay exact) and kernel D (nfa_layered:
+   EOD accepts, P > 48) against theirs over a 16 MB batch of blocks.
+   Then (2c) the literal families' kernels on the 10k ruleset at 16 MB,
+   structured and iid, and on a flood database (`aaaa` over a run of
+   `a`): the gate (row flags, K), the survivor-row
    rescan (positions, counts), kconfirm (the four counters and each
    cell's matches) and the plane mode and its extraction (the plane,
    (total, hit chunks), positions). Then (2d) kernel 7 (teddy_words,
-   count and list mode) on the 10k ruleset's byte masks at 16 MB,
-   structured and iid, also at an unaligned length with a look-back head;
-   its candidates must equal kernel A's; and dfa_scan_batch (kernel C's
+   count mode with its cell and segment counts, list mode from the
+   segment counts) on the 10k ruleset's masks at 16 MB, structured and
+   iid, on the class tables and on the byte tables, also at an unaligned
+   length with a look-back head; its candidates must equal kernel A's;
+   and dfa_scan_batch (kernel C's
    row mode, one launch a call; its tables in shared and in global
    memory) on a bounded-DFA batch of 1,024 x 16 KiB rows.
    Then (2e) kernel 4's stage modes 0-2 (row 11) on the 10k ruleset at
@@ -75,15 +79,19 @@ Phases, in order; any failure exits non-zero:
    the round's); kernel C on every round of the bounded-DFA streams,
    entered in the streams' carried states, against its plain version
    (records, finals, and finals equal to the states the streams carried
-   out). Exact; their errors join the kernels' `max_abs_err`.
+   out; its tables in shared and in global memory). Exact; their errors
+   join the kernels' `max_abs_err`.
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
    and per-kernel times at the main paths' shapes, beside their bounds
    and their plain versions' times (and torch.nonzero's beside the
-   extraction); the seconds of the speculative scans' host chains. Every
+   extraction); kernel C timed and held against its plain version with
+   its tables in shared and in global memory; the seconds of the
+   speculative scans' host chains. Every
    literal kernel is held against its plain version at these shapes too
    (exact), and its `max_abs_err` covers both sizes. (4d) kernel 7's two
-   modes over the 512 MB corpora (count mode also over four shard
-   segments, row 8's shape) and dfa_scan_batch (kernel C's row mode)
+   modes over the 512 MB corpora on both table routes (count mode also
+   over four shard segments, row 8's shape; count + list, teddy_scan's
+   device work) and dfa_scan_batch (kernel C's row mode)
    over 16,384 x 16 KiB and over one shard's 4,096 rows of it, beside
    their bounds and plain versions (and the row mode's launches a call,
    counted); at these
@@ -245,6 +253,10 @@ ENGINE_SETS = {
                    {"max_dfa_states": 8, "allow_teddy": False}, "dfa_scan"),
     "acyclic_nfa": ([r".*a.{18}b"], [0], {}, "nfa_layered"),
 }
+# a larger bounded DFA (S = 3,072, C = 4: S x C = 12,288), past the row
+# mode's shared-table limit and inside the chunk scan's, so kernel C's
+# default placements differ between its modes
+LARGE_DFA = r"a[^\n]{10}b"
 ENGINE_PLANTS = [b"abcdef", b"abddddef", b"555-1212", b"GET /index ",
                  b"12abc34", b"9zzzzzzzz8", b"axbycz!", b"dwdw!",
                  b"a" + b"q" * 18 + b"b", b"x12345678y"]
@@ -313,25 +325,39 @@ def chunk_inputs(torch, eng, corpus, blocks_lens, H, CS, entry):
             torch.from_numpy(plan.meta).to(DEVICE), plan, starts, lens)
 
 
-def compare_dfa(torch, DK, corpus_t, tabs, meta, H, placement):
-    """Kernel C vs its plain version on the same inputs: the same total,
-    record set and finals. Returns (kernel outputs, max abs error)."""
+def compare_dfa(torch, DK, corpus_t, tabs, meta, H,
+                placements=("shared", "global")):
+    """Kernel C with its tables in each placement vs its plain version on
+    the same inputs: the same total (also at a cap below it, where it
+    must stay exact), record set and finals. Returns (the first
+    placement's kernel outputs, max abs error)."""
     cap = 1 << 22
-    rk, tk, fk = DK.dfa_scan_chunks(corpus_t, tabs, meta, H, cap,
-                                    placement=placement)
     rp, tp, fp = DK.dfa_scan_chunks_plain(corpus_t, tabs, meta, H, cap)
-    torch.cuda.synchronize()
-    check(int(tk) == int(tp) <= cap, "kernel C total != plain version")
     k = int(tp)
+    check(k <= cap, "kernel C check: records past 2^22")
 
     def rows(r):
         r = r[:k].long()
         return r[torch.argsort(r[:, 0] * 512 + r[:, 1])]
 
-    err = max(int((fk - fp).abs().max()) if fk.numel() else 0,
-              int((rows(rk) - rows(rp)).abs().max()) if k else 0)
-    check(err == 0, f"kernel C ({placement}) != plain version")
-    return (rk, tk, fk), err
+    want = rows(rp) if k else None
+    first, err = None, 0
+    for placement in placements:
+        rk, tk, fk = DK.dfa_scan_chunks(corpus_t, tabs, meta, H, cap,
+                                        placement=placement)
+        _r, t_small, _f = DK.dfa_scan_chunks(corpus_t, tabs, meta, H,
+                                             max(1, k // 3),
+                                             placement=placement)
+        torch.cuda.synchronize()
+        check(int(tk) == k == int(t_small),
+              f"kernel C ({placement}) total {int(tk)} (at a cap below "
+              f"it {int(t_small)}) != plain version's {k}")
+        e = max(int((fk - fp).abs().max()) if fk.numel() else 0,
+                int((rows(rk) - want).abs().max()) if k else 0)
+        check(e == 0, f"kernel C ({placement}) != plain version")
+        err = max(err, e)
+        first = first or (rk, tk, fk)
+    return first, err
 
 
 def compare_nfa(torch, NK, corpus_t, plan, bs, be, ba):
@@ -355,9 +381,11 @@ def compare_nfa(torch, NK, corpus_t, plan, bs, be, ba):
 
 def engine_kernel_checks(torch, edbs):
     """Phase 2b: kernels C and D against their plain versions at 16 MB,
-    exact. Kernel C: a bounded DFA (shared tables, then the global
-    placement forced), H = 0 with carried entry states, and the
-    spec_dfa of a cyclic NFA; kernel D: EOD accepts, and P > 48."""
+    exact. Kernel C, each case with its tables in shared and in global
+    memory and at a cap below its total: a bounded DFA from its start
+    state and from carried states, H = 0 with carried entry states, and
+    the spec_dfa of a cyclic NFA, and LARGE_DFA; kernel D: EOD accepts,
+    and P > 48."""
     from hyperscan_tpu_torch.database import compile_patterns
     from hyperscan_tpu_torch.grey import Grey
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
@@ -372,23 +400,28 @@ def engine_kernel_checks(torch, edbs):
     udb = edbs["unbounded_dfa"][0].engines[0]
     spec = edbs["cyclic_nfa"][0].engines[0].spec_dfa
     cases = [
-        ("bounded DFA, shared tables", bdb, *DK.chunk_shape(bdb), "shared",
+        ("bounded DFA", bdb, *DK.chunk_shape(bdb),
          np.full(len(lens), bdb.start_state)),
-        ("bounded DFA, global tables", bdb, *DK.chunk_shape(bdb), "global",
-         np.full(len(lens), bdb.start_state)),
-        ("unbounded DFA, H=0, carried states", udb, 0, DK.SPEC_CS, None,
+        ("bounded DFA, carried states", bdb, *DK.chunk_shape(bdb),
+         rng.integers(0, bdb.num_states, size=len(lens))),
+        ("unbounded DFA, H=0, carried states", udb, 0, DK.SPEC_CS,
          rng.integers(0, udb.num_states, size=len(lens))),
-        ("spec_dfa of the cyclic NFA", spec, 0, DK.SPEC_CS, None,
+        ("spec_dfa of the cyclic NFA", spec, 0, DK.SPEC_CS,
          np.full(len(lens), spec.start_state)),
     ]
-    for (name, eng, H, CS, placement, entry) in cases:
+    big = compile_patterns([LARGE_DFA], grey=Grey(
+        allow_teddy=False)).engines[0]
+    cases.append((f"{LARGE_DFA} (S x C = {big.trans.size})", big,
+                  *DK.chunk_shape(big), np.full(len(lens), big.start_state)))
+    for (name, eng, H, CS, entry) in cases:
         corpus_t, tabs, meta, _plan, _s, _l = chunk_inputs(
             torch, eng, corpus, lens, H, CS, entry)
-        (_r, tot, _f), e = compare_dfa(torch, DK, corpus_t, tabs, meta, H,
-                                       placement)
+        (_r, tot, _f), e = compare_dfa(torch, DK, corpus_t, tabs, meta, H)
         err_c = max(err_c, e)
         log(f"kernel check C, {name}: H={H}, {meta.shape[0]} chunks, "
-            f"tables {tabs.nbytes} B, {int(tot)} records: exact")
+            f"step table {tabs.step_bytes('chunks')} B (default "
+            f"{DK.placement_of(tabs, None, 'chunks')}), {int(tot)} records, "
+            "shared and global tables, also past a cap: exact")
     for name, pat in (("EOD accepts", r".*x.{8}(y|z)$"),
                       ("P > 48", r".*a.{60}b")):
         eng = compile_patterns([pat], grey=Grey(
@@ -544,7 +577,7 @@ def engine_kernel_times(torch, edbs, corpus, clock_hz) -> dict:
                     torch, d, corpus, lens, H, CS,
                     np.full(len(lens), d.start_state))
                 (_rk, tot, fin), err = compare_dfa(torch, DK, corpus_t, tabs,
-                                                   meta, H, None)
+                                                   meta, H)
                 cap = max(1, int(tot))
                 r["ms"] = cuda_ms(torch, lambda: DK.dfa_scan_chunks(
                     corpus_t, tabs, meta, H, cap), 10)
@@ -559,16 +592,14 @@ def engine_kernel_times(torch, edbs, corpus, clock_hz) -> dict:
                         corpus_t, tabs, meta, H, cap), 1)
                 m = plan.meta.astype(np.int64)
                 live = int((m[:, 2] - m[:, 1]).sum())
-                body = int((m[:, 2] - np.maximum(m[:, 1], H)).sum())
-                lookups = 2 * live + body  # b2c + trans, accept at t >= H
+                lookups = 2 * live  # a class map and a transition
                 t_ops = lookups / lookups_per_s * 1e3
                 nch = meta.shape[0]
                 t_bytes = (corpus_t.numel() + nch * 20 + int(tot) * 12
                            + tabs.nbytes + 1024) / HBM_BYTES_PER_S * 1e3
                 r.update(records=int(tot), err=err, chunks=nch,
                          lookups=lookups, kernel="dfa_scan",
-                         placement=("shared" if tabs.nbytes
-                                    <= DK.SHARED_TABLE_LIMIT else "global"))
+                         placement=DK.placement_of(tabs, None, "chunks"))
                 if spec:
                     fin_np = fin.cpu().numpy()
                     t0 = time.perf_counter()
@@ -805,7 +836,7 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
         ms=cuda_ms(torch, lambda: G.gate_rows(corpus_t, gt), 10),
         plain_ms=cuda_ms(torch, lambda: G.gate_rows_plain(corpus_t, gt), 1),
         library_ms=None, rows=k_rows,
-        **bound(n + n_cells * (T.CELL // T.ROW + 4), n * (1 + M)))
+        **bound(n + n_cells * (T.CELL // T.ROW + 4), n * M))
     capc = F._caps_for(lit, 1 << 14, "gated")[1]
     pk, ck = G.rescan_rows(corpus_t, ft, flags, capc)
     pp, cp = T.filter_compact_plain(corpus_t, ft, capc, use_classes=True,
@@ -820,7 +851,7 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
         library_ms=None, capc=capc, candidates=int(cp.sum()),
         **bound(k_rows * T.ROW + n_cells * (T.CELL // T.ROW)
                 + n_cells * (capc + 1) * 4,
-                k_rows * T.ROW * (1 + M * W)))
+                k_rows * T.ROW * M * W))
     del pk, ck, pp, cp
     ok_ = K.filter_kconfirm(corpus_t, ft, kt, use_classes=True)
     op_ = K.filter_kconfirm_plain(corpus_t, ft, kt, use_classes=True)
@@ -839,7 +870,7 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
         # per candidate and group: one 256-byte row read, ~20 hash
         # operations and 128 signature compares
         **bound(n + n_cand * G_ * 256 + n_cells * (2 + 2 * K.CAPC2) * 4,
-                n * (1 + M * W), n_cand * G_ * (20 + 128)))
+                n * M * W, n_cand * G_ * (20 + 128)))
     del ok_, op_
     plane = T.filter_plane(corpus_t, ft, use_classes=True)
     plane_p = T.filter_plane_plain(corpus_t, ft, use_classes=True)
@@ -852,7 +883,7 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
         plain_ms=cuda_ms(torch, lambda: T.filter_plane_plain(
             corpus_t, ft, use_classes=True), 1),
         library_ms=None, candidates=total,
-        **bound(n + plane.numel(), n * (1 + M * W)))
+        **bound(n + plane.numel(), n * M * W))
     cap1 = T._p2(max(total, 1))
     mk, qk = X.plane_extract(plane, n, cap1)
     mp, qp = X.plane_extract_plain(plane, n, cap1)
@@ -893,22 +924,50 @@ def words_err(cnt_k, pos_k, words_k, cnt_p, pos_p, words_p) -> int:
     return err
 
 
-def words_check(torch, T, TW, corpus_t, ft, masks, start=0) -> tuple:
-    """Kernel 7, count and list mode, against its plain version on the
-    same inputs (exact), and its candidate positions against kernel A's
-    plane mode with byte tables (a cross-check of two kernels). Returns
-    (max abs error, candidates)."""
-    cnt_k = TW.filter_words_count(corpus_t, masks, start)
-    cnt_p, pos_p, words_p = TW.filter_words_plain(corpus_t, masks, start)
-    total = pos_p.numel()
-    pos_k, words_k = TW.filter_words_list(corpus_t, masks, cnt_k,
-                                          max(1, total), start)
+def seg_err(TW, seg_k, pos_p, n: int, start: int) -> int:
+    """Max abs difference of kernel 7's segment counts from the plain
+    version's (its positions binned by segment)."""
+    seg_p = TW.segment_counts(pos_p, n, start)
+    if seg_k.shape != seg_p.shape:
+        return 1 << 30
+    return int((seg_k.long() - seg_p.long()).abs().max()) if \
+        seg_p.numel() else 0
+
+
+def words_route_err(torch, TW, corpus_t, masks, start, plain, classes):
+    """Kernel 7 on one table route (count mode with and without segment
+    counts, list mode from the segment counts) against its plain version
+    `plain` = (counts, positions, words): the max abs error."""
+    cnt_p, pos_p, words_p = plain
+    n = corpus_t.numel()
+    cnt_k, seg_k = TW.filter_words_count(corpus_t, masks, start,
+                                         segments=True, use_classes=classes)
+    cnt_only = TW.filter_words_count(corpus_t, masks, start,
+                                     use_classes=classes)
+    pos_k, words_k = TW.filter_words_list(corpus_t, masks, seg_k,
+                                          max(1, pos_p.numel()), start,
+                                          use_classes=classes)
     torch.cuda.synchronize()
-    err = words_err(cnt_k, pos_k, words_k, cnt_p, pos_p, words_p)
+    return max(words_err(cnt_k, pos_k, words_k, cnt_p, pos_p, words_p),
+               words_err(cnt_only, pos_k, words_k, cnt_p, pos_p, words_p),
+               seg_err(TW, seg_k, pos_p, n, start))
+
+
+def words_check(torch, T, TW, corpus_t, ft, masks, start=0) -> tuple:
+    """Kernel 7, count mode (cell and segment counts) and list mode, on
+    the class tables and on the byte tables (each route forced), against
+    its plain version on the same inputs (exact), and its candidate
+    positions against kernel A's plane mode with byte tables (a
+    cross-check of two kernels). Returns (max abs error, candidates)."""
+    plain = TW.filter_words_plain(corpus_t, masks, start)
+    total = plain[1].numel()
+    err = max(words_route_err(torch, TW, corpus_t, masks, start, plain,
+                              classes)
+              for classes in (True, False))
     check(err == 0, f"kernel 7 (start {start}) != plain version")
     plane = T.filter_plane(corpus_t, ft, use_classes=False)
     cand_a = torch.nonzero(plane[start:corpus_t.numel()]).squeeze(1).int()
-    check(torch.equal(cand_a, pos_k[:total]),
+    check(torch.equal(cand_a, plain[1]),
           "kernel 7 candidates != kernel A's candidates")
     return err, total
 
@@ -934,13 +993,15 @@ def multi_kernel_checks(torch, T, db, edbs) -> dict:
     dfa_scan_batch (kernel C's row mode) against its lockstep plain
     version on a bounded-DFA batch of 1,024 x 16 KiB rows (scalar and
     per-row entry states; the row mode with its tables in global memory
-    too). Exact."""
+    too), and with LARGE_DFA (scalar entry, both placements). Exact."""
+    from hyperscan_tpu_torch.database import compile_patterns
+    from hyperscan_tpu_torch.grey import Grey
     from hyperscan_tpu_torch.ops import dfa as D
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
     from hyperscan_tpu_torch.ops import teddy_words as TW
 
     ft, _ct = T.device_tables(db.lit, DEVICE)
-    masks = TW.word_tables(db.lit.masks, DEVICE)
+    masks = T.mask_tables(db.lit.masks, DEVICE)
     errs = {"words": 0, "dfa_batch": 0}
     for kind in ("structured", "iid"):
         corpus_t = torch.from_numpy(gen_corpus(CHECK_BYTES, 2, kind)).to(
@@ -950,12 +1011,16 @@ def multi_kernel_checks(torch, T, db, edbs) -> dict:
                                    start)
             errs["words"] = max(errs["words"], e)
             log(f"kernel check 7 {kind}: n={n} start={start}: {total} "
-                "candidates, count and list == plain == kernel A: exact")
+                "candidates, count (cells, segments) and list, class and "
+                "byte tables == plain == kernel A: exact")
     eng = edbs["bounded_dfa"][0].engines[0]
-    tabs = DK.device_tables(eng, DEVICE)
+    big = compile_patterns([LARGE_DFA], grey=Grey(
+        allow_teddy=False)).engines[0]
     d_t, l_t, i_t = dfa_batch_inputs(torch, eng, gen_engine_corpus(
         DFA_CHECK_ROWS * ENGINE_BLOCK, 6), DFA_CHECK_ROWS, 7)
-    for init in (int(eng.start_state), i_t):
+    for dfa, init in ((eng, int(eng.start_state)), (eng, i_t),
+                      (big, int(big.start_state))):
+        tabs = DK.device_tables(dfa, DEVICE)
         args = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
                 init, d_t, l_t)
         a_p, f_p = D.dfa_scan_batch_plain(*args)
@@ -968,9 +1033,10 @@ def multi_kernel_checks(torch, T, db, edbs) -> dict:
             check(e == 0, f"dfa_scan_batch row mode ({placement} tables) "
                   "!= plain version")
         entry = "scalar" if isinstance(init, int) else "per-row"
-        log(f"kernel check dfa_scan_batch ({entry} entry, shared and "
-            f"global tables): {DFA_CHECK_ROWS} x {ENGINE_BLOCK} rows, "
-            f"{int((a_p != 0).sum())} accepts: exact")
+        log(f"kernel check dfa_scan_batch (S x C = {tabs.S * tabs.C}, "
+            f"default {DK.placement_of(tabs, None, 'rows')}; {entry} entry, "
+            f"shared and global tables): {DFA_CHECK_ROWS} x {ENGINE_BLOCK} "
+            f"rows, {int((a_p != 0).sum())} accepts: exact")
     return errs
 
 
@@ -1160,22 +1226,24 @@ def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
                        clock_hz) -> dict:
     """Phase 4d: kernel 7 count and list mode over each 512 MiB corpus
     (row 8 is count mode, once per shard: also timed over the 4-shard
-    segments), and dfa_scan_batch (kernel C's row mode) over 16,384 x
-    16 KiB and over its first 4,096 rows (one shard of four), each
-    beside its bound and its plain version (CUDA events). At these
-    shapes every kernel is also held against its plain version (exact):
-    kernel 7's per-cell counts, positions and words over each corpus;
-    count mode over each of the four segments against the plain version
-    over the same segment and against the whole corpus's plain positions
-    inside it; the batch scan's accept plane and finals. The errors are
-    returned under "err"."""
+    segments; count mode also with segment counts and on the byte tables
+    forced; count + cumsum + list, teddy_scan's device work), and
+    dfa_scan_batch (kernel C's row mode) over 16,384 x 16 KiB and over
+    its first 4,096 rows (one shard of four), each beside its bound and
+    its plain version (CUDA events). At these shapes every kernel is
+    also held against its plain version (exact): kernel 7's per-cell and
+    per-segment counts, positions and words over each corpus on both
+    table routes; count mode over each of the four segments, on both
+    routes, against the plain version over the same segment and against
+    the whole corpus's plain positions inside it; the batch scan's accept
+    plane and finals. The errors are returned under "err"."""
     from hyperscan_tpu_torch import parallel as P
     from hyperscan_tpu_torch.ops import dfa as D
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
     from hyperscan_tpu_torch.ops import teddy_words as TW
 
     lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
-    masks = TW.word_tables(db.lit.masks, DEVICE)
+    masks = T.mask_tables(db.lit.masks, DEVICE)
     M, W = masks.M, masks.W
 
     def bound(n_bytes, lookups):
@@ -1185,63 +1253,98 @@ def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
                 "bound_by": "operations" if t_o > t_b else "bytes"}
 
     out = {"err": {"words": 0, "dfa_batch": 0}}
+    check(masks.cmasks is not None, "the 10k ruleset's masks do not "
+          "compress to class tables")
+    # the class tables and their class map; the bounds count the M*W
+    # table words a position needs (the byte tables give the same words),
+    # and "lookups_read" adds the class route's remap of each byte
+    tab_bytes = M * W * 128 * 4 + 256
     for kind, (corpus, _o, _w, _t) in runs.items():
         corpus_t = T.corpus_tensor(corpus, DEVICE)
         n = corpus_t.numel()
         n_cells = T._n_cells(n)
-        cnt = TW.filter_words_count(corpus_t, masks)
-        total = int(cnt.long().sum())
-        pos_k, words_k = TW.filter_words_list(corpus_t, masks, cnt,
-                                              max(1, total))
-        cnt_p, pos_p, words_p = TW.filter_words_plain(corpus_t, masks)
-        err = words_err(cnt, pos_k, words_k, cnt_p, pos_p, words_p)
+        n_segs = TW.n_segments(n)
+        plain = TW.filter_words_plain(corpus_t, masks)
+        _cnt_p, pos_p, _words_p = plain
+        total = pos_p.numel()
+        # both table routes: cell and segment counts, the list
+        err = max(words_route_err(torch, TW, corpus_t, masks, 0, plain,
+                                  classes) for classes in (True, False))
         plain_ms = cuda_ms(torch, lambda: TW.filter_words_plain(
             corpus_t, masks), 1)
+        cnt, segs = TW.filter_words_count(corpus_t, masks, segments=True)
+        visited = int((segs != 0).sum())
         # row 8's shape: count mode over each shard's segment of four,
-        # with its look-back bytes
+        # with its look-back bytes, on both routes
         parts = []
         for lo, hi in P.sharded.segments(n, SHARDS_ONE_CARD):
             back = min(lo, P.sharded.LOOKBACK)
             part = corpus_t[lo - back:hi].clone()
             parts.append((part, back))
-            seg_k = TW.filter_words_count(part, masks, back)
             seg_p = TW.filter_words_plain(part, masks, back)[0]
             inside = int(((pos_p >= lo) & (pos_p < hi)).sum())
-            err = max(err, int((seg_k.long() - seg_p.long()).abs().max()),
-                      abs(int(seg_k.long().sum()) - inside))
-        check(err == 0, f"{kind}: kernel 7 at {n} bytes (count, list, "
-              f"{SHARDS_ONE_CARD} segments) != plain version")
-        log(f"kernel check 7 {kind} at {n} bytes: {total} candidates; "
-            f"count, list and {SHARDS_ONE_CARD} shard segments == plain: "
-            "exact")
+            for classes in (True, False):
+                seg_k = TW.filter_words_count(part, masks, back,
+                                              use_classes=classes)
+                err = max(err,
+                          int((seg_k.long() - seg_p.long()).abs().max()),
+                          abs(int(seg_k.long().sum()) - inside))
+        check(err == 0, f"{kind}: kernel 7 at {n} bytes (count, segment "
+              f"counts, list, class and byte tables, {SHARDS_ONE_CARD} "
+              "shard segments) != plain version")
+        log(f"kernel check 7 {kind} at {n} bytes: {total} candidates in "
+            f"{visited} of {n_segs} segments; count, segment counts, list "
+            f"(class and byte tables) and {SHARDS_ONE_CARD} shard segments "
+            "== plain: exact")
         out["err"]["words"] = max(out["err"]["words"], err)
-        del pos_k, words_k, cnt_p, pos_p, words_p
+        del plain, pos_p, _words_p
+
+        def count_list():
+            _c, sg = TW.filter_words_count(corpus_t, masks, segments=True)
+            return TW.filter_words_list(corpus_t, masks, sg, max(1, total))
+
         out[kind] = {
-            "candidates": total,
+            "candidates": total, "segments": n_segs,
+            "segments_visited": visited,
             "count": dict(
                 ms=cuda_ms(torch, lambda: TW.filter_words_count(
                     corpus_t, masks), 10),
+                ms_segments=cuda_ms(torch, lambda: TW.filter_words_count(
+                    corpus_t, masks, segments=True), 10),
+                ms_byte_tables=cuda_ms(torch, lambda: TW.filter_words_count(
+                    corpus_t, masks, use_classes=False), 10),
                 plain_ms=plain_ms, library_ms=None,
-                **bound(n + n_cells * 4 + M * W * 1024, n * M * W)),
+                lookups_read=n * (M * W + 1),
+                **bound(n + n_cells * 4 + tab_bytes, n * M * W)),
             "count_4_segments": dict(ms=cuda_ms(torch, lambda: [
                 TW.filter_words_count(p, masks, s) for p, s in parts], 10)),
+            # list mode's own work: the segment counts read, the visited
+            # segments' ranks and bytes read and filtered, the outputs
             "list": dict(
                 ms=cuda_ms(torch, lambda: TW.filter_words_list(
-                    corpus_t, masks, cnt, max(1, total)), 10),
+                    corpus_t, masks, segs, max(1, total)), 10),
                 plain_ms=plain_ms, library_ms=None,
-                **bound(n + n_cells * 4 + total * (1 + W) * 4,
-                        n * M * W + total * M * W)),
+                lookups_read=visited * TW.SEG * (M * W + 1),
+                **bound(n_segs * 4 + visited * (8 + TW.SEG) + tab_bytes
+                        + total * (1 + W) * 4,
+                        visited * TW.SEG * M * W)),
+            # the standalone filter's total (teddy_scan's device work:
+            # count with segment counts, cumsum, list) against one
+            # filter pass and its outputs
+            "count_list": dict(
+                ms=cuda_ms(torch, count_list, 10),
+                **bound(n + tab_bytes + total * (1 + W) * 4, n * M * W)),
         }
         if total:
             # the compaction's yardstick: torch.nonzero over the
             # candidate plane
-            pos_k = TW.filter_words_list(corpus_t, masks, cnt, total)[0]
+            pos_k = TW.filter_words_list(corpus_t, masks, segs, total)[0]
             cand = torch.zeros(n, dtype=torch.uint8, device=DEVICE)
             cand[pos_k.long()] = 1
             out[kind]["list"]["nonzero_ms"] = cuda_ms(
                 torch, lambda: torch.nonzero(cand), 5)
-            del cand
-        del parts, corpus_t
+            del cand, pos_k
+        del parts, corpus_t, cnt, segs
     eng = edbs["bounded_dfa"][0].engines[0]
     tabs = DK.device_tables(eng, DEVICE)
     data, lengths = sh["data"]
@@ -1341,7 +1444,7 @@ def stage_probe_times(torch, T, db, corpus, clock_hz) -> dict:
     corpus_t = T.corpus_tensor(corpus, DEVICE)
     n = corpus_t.numel()
     n_cells = T._n_cells(n)
-    lookups = n * (1 + ft.M * ft.W)
+    lookups = n * ft.M * ft.W
     cand, groups = res["candidates"], len(kt.groups)
     lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
 
@@ -1747,9 +1850,10 @@ def stream_dfa_checks(torch, st) -> int:
     """Kernel C at the bounded-DFA streams' inputs: every round's 1,024
     writes, entered in the states the streams carried into it, through
     the wrapper the path calls (`dfa_scan_corpus_device`, init_states)
-    on the card, against the plain version on the same chunk rows:
-    records and finals exact, and the finals equal the states the path
-    carried out of the round. Returns the max abs error."""
+    on the card, and on the same chunk rows with its tables in global
+    memory, against the plain version on those rows: records and finals
+    exact, and the finals equal the states the path carried out of the
+    round. Returns the max abs error."""
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
 
     (eng,) = st["edb"].engines
@@ -1769,18 +1873,25 @@ def stream_dfa_checks(torch, st) -> int:
         check(int(tp) <= 1 << 22, "stream DFA round: records past 2^22")
         c, t, a = rp[:int(tp)].long().cpu().numpy().T
         fin_p = fp.cpu().numpy()[plan.last]
+        # the other placement on the same chunk rows: global tables
+        rg, tg, fg = DK.dfa_scan_chunks(corpus_t, tabs, meta, H, 1 << 22,
+                                        placement="global")
+        g = rg[:int(tg)].long()
+        g = g[torch.argsort(g[:, 0] * 512 + g[:, 1])].cpu().numpy()
         e = max(_arr_err(b_k, plan.block[c]),
                 _arr_err(p_k, plan.body_start[c] + t - H),
                 _arr_err(a_k, a), _arr_err(fin_k, fin_p),
-                _arr_err(fin_p, states[r + 1]))
+                _arr_err(fin_p, states[r + 1]),
+                _arr_err(g, rp[:int(tp)].long().cpu().numpy()),
+                _arr_err(fg.cpu().numpy(), fp.cpu().numpy()))
         check(e == 0, f"stream DFA round {r}: kernel C (carried entry "
               "states) != plain version")
         err = max(err, e)
         n_rec += len(b_k)
     log(f"bounded DFA streams, kernel C at the path's inputs: "
         f"{len(e_writes)} rounds x {len(e_writes[0])} writes entered in "
-        f"carried states, {n_rec} records, finals == the streams' carried "
-        f"states: exact")
+        f"carried states, {n_rec} records (shared and global tables), "
+        "finals == the streams' carried states: exact")
     return err
 
 
@@ -1905,7 +2016,7 @@ def kernel_times(torch, T, db, corpus, clock_hz) -> dict:
         tab_bytes = M * W * (128 if classes else 256) * 4
         t_bytes = (n + n_cells * (capc + 1) * 4 + tab_bytes) \
             / HBM_BYTES_PER_S * 1e3
-        lookups = n * (M * W + (1 if classes else 0))  # + the b2c remap
+        lookups = n * M * W  # the words either route gives
         t_ops = lookups / (SMEM_LOOKUPS_PER_CLK * clock_hz) * 1e3
         return {"ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -2285,7 +2396,9 @@ def main() -> int:
             "replaces": replaces, "launches": mlaunch[name],
             "max_abs_err": merr["words"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # the table reads of the class route beside the bound's
+            "lookups_read": t["lookups_read"]})
     # row 11: stages 0-2 of kernel 4 on the stage probe's path; the entry
     # gives stage 2's time and bound (the deepest stage mode), and each
     # stage's under "stages"

@@ -25,28 +25,39 @@
 // finals[r] = the state after position len_r - 1 (s_r when len_r = 0). This
 // is exact for any DFA: nothing is speculative.
 //
-// What bounds them. A chunk step is a chain of two dependent lookups (b2c,
-// then trans) plus the accept lookup, and the halo of H bytes is re-read by
-// every chunk but a block's first. The bytes are read once (n bytes at 3.35
-// TB/s); the lookups bound the chunk scan: at shared-memory rate, 132 SMs x
-// 32 lookups a clock; with tables in global memory, the L2's rate for random
-// 4-byte reads, which is lower. The row mode reads n bytes and writes the 4n
+// What bounds them. The chunk scan reads the bytes once (n bytes at 3.35
+// TB/s, plus the H-byte halos) and does one class map and one transition a
+// live position: at shared-memory rate, 132 SMs x 32 lookups a clock, the
+// lookups bound it (with tables in global memory, the L2's rate for random
+// reads, which is lower). The row mode reads n bytes and writes the 4n
 // bytes of the plane: device memory bounds it, and below that the serial
 // chain of one row (L dependent lookups) where the rows are few.
 //
 // Design of the chunk scan. One thread per chunk, so the only serial
 // dependence is the DFA recurrence itself and latency is hidden by the
-// number of chunks in flight (a 256 MiB corpus has half a million).
-// Neighbouring threads read bytes ~512 apart, so the bytes are not read from
-// global memory by each thread: a block stages 128 positions of all its 128
-// chunks at a time into shared memory with coalesced 16-byte loads (9 per
-// chunk row, to cover any alignment), and each row has an odd stride of 37
-// words so a warp's byte reads spread over the banks. b2c always lives in
-// shared memory; trans and accept too when they fit (the `kShared` variant),
-// otherwise they are read through the read-only path from global memory,
-// where a table of a few MiB stays in the 50 MB L2. None of the TPU's select
-// tree (O(rows) selects per lookup) is needed. Records are emitted with one
-// atomic per warp and step (ballot, popcount), not per record.
+// number of chunks in flight (a 256 MiB corpus has half a million). Each
+// thread streams its own chunk's bytes from global memory in 16-byte
+// loads, two ahead of the vector it steps through; a chunk's 128-byte lines
+// are read by one thread over eight loads and stay in L1/L2 meanwhile, so
+// nothing is staged in shared memory and no barrier follows the tables'
+// build (staging a block's tiles through shared memory, the first design,
+// cost a barrier pair and the staging's latency every 128 positions, and
+// its shared footprint capped the warps an SM: PERF.md). The class map is
+// held as 32 copies (byte b * 32 + lane), so a warp's 32 lookups of random
+// bytes spread over the banks. With shared tables the block builds a step
+// table whose (state, class) entry packs 4 (next state * C) in 16 bits and
+// the next state's accept id in the other 16, and a thread carries 4
+// (state * C): the chain from one position to the next is an add, one
+// 32-bit shared load and a mask, and the accept id comes with it (a scanning
+// DFA's states cluster, so a warp's entries mostly lie in one row of the
+// table: distinct banks). Tables too large for shared memory (or accept ids
+// past 16 bits) are read through the read-only path (the chain is then a
+// multiply and two L1/L2 loads). The live window is tested only on a
+// chunk's first and last vectors, the halo only where an accept id is
+// nonzero; a record, rare, is written by a warp-aggregated atomic of the
+// lanes that hold one. Blocks walk the chunks of a resident grid, so the
+// tables are built once a block. None of the TPU's select tree (O(rows)
+// selects per lookup) is needed.
 //
 // Design of the row mode. One launch for the whole batch, one thread a row
 // over its whole length, so no host work between chunks (the batch scan was
@@ -66,23 +77,22 @@
 // not a multiple of 16 (or unaligned data) take 1-byte loads and 4-byte
 // stores.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunk = 512;                   // H + CS positions a chunk
-constexpr int kThreads = 128;                 // chunks per block
-constexpr int kTile = 128;                    // positions staged per round
-constexpr int kVecs = kTile / 16 + 1;         // 16-byte loads per row
-constexpr int kRowWords = kVecs * 4 + 1;      // odd stride: 37 words
-constexpr int kStageWords = kThreads * kRowWords;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;                 // chunks in flight a block
+constexpr int kMapBytes = 256 * 32;           // the class map's 32 copies
 
 // 16 bytes at p (a multiple of 16); zero for bytes before 0 or at/after n.
 __device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ corpus,
                                         long long n, long long p) {
   if (p >= 0 && p + 16 <= n)
-    return *reinterpret_cast<const uint4*>(corpus + p);
+    return __ldg(reinterpret_cast<const uint4*>(corpus + p));
   uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
@@ -90,6 +100,46 @@ __device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ corpus,
     if (q >= 0 && q < n) w[k >> 2] |= uint32_t(corpus[q]) << ((k & 3) * 8);
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Allow `smem` bytes of dynamic shared memory, then return the grid of a
+// resident launch: as many blocks of `threads` as fit on the current card
+// at once, and no more than `want`. 0 and an error in `err` on failure.
+template <typename Kernel>
+int resident_grid(Kernel kernel, int threads, size_t smem, int want,
+                  cudaError_t& err) {
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return 0;
+  if (per_sm < 1) {
+    err = cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  const long long fit = (long long)per_sm * sms;
+  return int(fit < want ? fit : want);
+}
+
+// One record (c, t, aid): the lanes that hold a record now take one slot
+// range with one atomic; the counter keeps the exact total past cap.
+__device__ __forceinline__ void emit(int32_t* __restrict__ recs, int cap,
+                                     int32_t* __restrict__ total, int c,
+                                     int t, int aid) {
+  const cg::coalesced_group g = cg::coalesced_threads();
+  int r0 = 0;
+  if (g.thread_rank() == 0) r0 = atomicAdd(total, int(g.size()));
+  const int r = g.shfl(r0, 0) + int(g.thread_rank());
+  if (r < cap) {
+    recs[3 * r] = c;
+    recs[3 * r + 1] = t;
+    recs[3 * r + 2] = aid;
+  }
 }
 
 template <bool kShared>
@@ -101,74 +151,81 @@ dfa_scan_kernel(const uint8_t* __restrict__ corpus, long long n,
                 const int32_t* __restrict__ accept, int S, int C, int H,
                 int32_t* __restrict__ recs, int cap,
                 int32_t* __restrict__ total, int32_t* __restrict__ finals) {
-  extern __shared__ int32_t smem[];
-  uint32_t* s_stage = reinterpret_cast<uint32_t*>(smem);  // [kThreads][37]
-  int32_t* s_b2c = smem + kStageWords;                    // [256]
-  int32_t* s_trans = s_b2c + 256;                         // [S * C]
-  int32_t* s_acc = s_trans + (kShared ? S * C : 0);       // [S]
-  __shared__ long long s_base[kThreads];
-
+  extern __shared__ __align__(16) int32_t smem[];
+  uint32_t* s_step = reinterpret_cast<uint32_t*>(smem);  // [S * C], kShared
+  uint8_t* s_map =
+      reinterpret_cast<uint8_t*>(s_step + (kShared ? S * C : 0));
   const int tid = threadIdx.x;
-  const unsigned lane = tid & 31;
-  for (int i = tid; i < 256; i += kThreads) s_b2c[i] = b2c[i];
+  const int lane = tid & 31;
+  // the class map: byte b * 32 + l is copy l of b2c[b], so lane l's
+  // lookups fall in the bank of word 8 b + l / 4 (four lanes a word)
+  for (int i = tid; i < kMapBytes; i += kThreads)
+    s_map[i] = uint8_t(b2c[i >> 5]);
   if (kShared) {
-    for (int i = tid; i < S * C; i += kThreads) s_trans[i] = trans[i];
-    for (int i = tid; i < S; i += kThreads) s_acc[i] = accept[i];
-  }
-  const int c = blockIdx.x * kThreads + tid;
-  // padding threads (c >= nch) have no live position but take part in
-  // the staging and the warp-wide emission
-  const int4 m = c < nch ? meta[c] : make_int4(0, 0, 0, 0);
-  const long long start = m.x;
-  const long long base = start & ~15LL;  // floor to 16 (start may be < 0)
-  const int off = int(start - base);
-  const int vfrom = m.y, vto = m.z;
-  int state = m.w;
-  s_base[tid] = base;
-
-  for (int t0 = 0; t0 < kChunk; t0 += kTile) {
-    // also the barrier that keeps the previous round's readers ahead of
-    // this round's stores
-    if (!__syncthreads_or(vfrom < t0 + kTile && vto > t0)) continue;
-    for (int i = tid; i < kThreads * kVecs; i += kThreads) {
-      const int row = i / kVecs;
-      const int v = i - row * kVecs;
-      const uint4 q = load16(corpus, n, s_base[row] + t0 + 16 * v);
-      uint32_t* dst = s_stage + row * kRowWords + 4 * v;
-      dst[0] = q.x;
-      dst[1] = q.y;
-      dst[2] = q.z;
-      dst[3] = q.w;
+    // the step table: (state, class) -> 4 (next state * C) in the low 16
+    // bits, the next state's accept id in the high 16 (the wrapper keeps
+    // both in range), so a thread carrying 4 (state * C) finds the entry
+    // of class c at byte offset st + 4 c
+    for (int i = tid; i < S * C; i += kThreads) {
+      const int nx = trans[i];
+      s_step[i] = uint32_t(nx * C * 4) | uint32_t(accept[nx]) << 16;
     }
-    __syncthreads();
-    const uint8_t* row =
-        reinterpret_cast<const uint8_t*>(s_stage + tid * kRowWords) + off;
-#pragma unroll 4
-    for (int tau = 0; tau < kTile; ++tau) {
-      const int t = t0 + tau;
-      int aid = 0;
-      if (t >= vfrom && t < vto) {
-        const int idx = state * C + s_b2c[row[tau]];
-        state = kShared ? s_trans[idx] : __ldg(trans + idx);
-        if (t >= H) aid = kShared ? s_acc[state] : __ldg(accept + state);
+  }
+  __syncthreads();
+  const uint8_t* my_map = s_map + lane;
+
+  for (int c = blockIdx.x * kThreads + tid; c < nch;
+       c += gridDim.x * kThreads) {
+    const int4 m = meta[c];
+    const int vfrom = m.y, vto = m.z;
+    uint32_t st = kShared ? uint32_t(m.w * C * 4) : uint32_t(m.w);
+    // one live position of byte b; returns the accept id after the step
+    auto step = [&](uint32_t b) -> int {
+      const uint32_t cls = my_map[b << 5];
+      if constexpr (kShared) {
+        const uint32_t e = *reinterpret_cast<const uint32_t*>(
+            reinterpret_cast<const uint8_t*>(s_step) + st + (cls << 2));
+        st = e & 0xFFFFu;
+        return int(e >> 16);
+      } else {
+        st = uint32_t(__ldg(trans + st * C + cls));
+        return __ldg(accept + st);
       }
-      const unsigned hits = __ballot_sync(0xffffffffu, aid != 0);
-      if (hits) {
-        int r0 = 0;
-        if (lane == 0) r0 = atomicAdd(total, __popc(hits));
-        r0 = __shfl_sync(0xffffffffu, r0, 0);
-        if (aid != 0) {
-          const int r = r0 + __popc(hits & ((1u << lane) - 1u));
-          if (r < cap) {
-            recs[3 * r] = c;
-            recs[3 * r + 1] = t;
-            recs[3 * r + 2] = aid;
+    };
+    if (vfrom < vto) {
+      // the live bytes start + vfrom .. start + vto - 1, in the 16-byte
+      // vectors that cover them, two loads ahead of the one being stepped
+      const long long p0 = (long long)m.x + vfrom;
+      const long long a0 = p0 & ~15LL;  // floor to 16 (p0 may be < 0)
+      const int nvec = int(((long long)m.x + vto - a0 + 15) >> 4);
+      int t = vfrom - int(p0 - a0);  // the position of byte a0
+      uint4 cur = load16(corpus, n, a0);
+      uint4 nxt = nvec > 1 ? load16(corpus, n, a0 + 16)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      for (int k = 0; k < nvec; ++k, t += 16) {
+        const uint32_t w[4] = {cur.x, cur.y, cur.z, cur.w};
+        cur = nxt;
+        if (k + 2 < nvec) nxt = load16(corpus, n, a0 + 16 * (k + 2));
+        if (t >= vfrom && t + 16 <= vto) {  // the whole vector live
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int aid = step((w[e >> 2] >> (8 * (e & 3))) & 0xFFu);
+            if (aid != 0 && t + e >= H) emit(recs, cap, total, c, t + e, aid);
+          }
+        } else {  // a chunk's first or last vector
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int te = t + e;
+            if (te >= vfrom && te < vto) {
+              const int aid = step((w[e >> 2] >> (8 * (e & 3))) & 0xFFu);
+              if (aid != 0 && te >= H) emit(recs, cap, total, c, te, aid);
+            }
           }
         }
       }
     }
+    finals[c] = kShared ? int(st / 4) / C : int(st);
   }
-  if (c < nch) finals[c] = state;
 }
 
 template <bool kShared>
@@ -177,19 +234,15 @@ cudaError_t launch(const uint8_t* corpus, long long n, const int4* meta,
                    const int32_t* accept, int S, int C, int H, int32_t* recs,
                    int cap, int32_t* total, int32_t* finals,
                    cudaStream_t stream) {
-  const size_t smem =
-      size_t(kStageWords + 256) * 4 +
-      (kShared ? (size_t(S) * C + size_t(S)) * 4 : 0);
+  const size_t smem = kMapBytes + (kShared ? size_t(S) * C * 4 : 0);
   auto kernel = dfa_scan_kernel<kShared>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int blocks = (nch + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, smem, stream>>>(corpus, n, meta, nch, trans,
-                                             b2c, accept, S, C, H, recs, cap,
-                                             total, finals);
+  cudaError_t e;
+  const int grid = resident_grid(kernel, kThreads, smem,
+                                 (nch + kThreads - 1) / kThreads, e);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(corpus, n, meta, nch, trans, b2c,
+                                           accept, S, C, H, recs, cap, total,
+                                           finals);
   return cudaGetLastError();
 }
 
@@ -297,20 +350,10 @@ cudaError_t launch_rows(const uint8_t* data, int B, int L, bool vec,
                         int32_t* finals, cudaStream_t stream) {
   const size_t smem = kShared ? size_t(S) * C * 8 : 0;
   auto kernel = dfa_rows_kernel<kShared>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kRowThreads, smem);
+  cudaError_t e;
+  const int grid = resident_grid(kernel, kRowThreads, smem,
+                                 (B + kRowThreads - 1) / kRowThreads, e);
   if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int groups = (B + kRowThreads - 1) / kRowThreads;
-  const int fit = per_sm * sms;
-  const int grid = groups < fit ? groups : fit;
   kernel<<<grid, kRowThreads, smem, stream>>>(data, B, L, vec, lengths,
                                               states0, trans, b2c, accept, S,
                                               C, plane, finals);
@@ -325,6 +368,8 @@ extern "C" int hs_dfa_scan(const void* corpus, long long n, const void* meta,
                            int shared_tables, void* recs, int cap,
                            void* total, void* finals, void* stream) {
   if (nch <= 0) return int(cudaSuccess);
+  // the class map holds class ids as bytes
+  if (C < 1 || C > 256 || S < 1) return int(cudaErrorInvalidValue);
   const auto* cp = static_cast<const uint8_t*>(corpus);
   const auto* mp = static_cast<const int4*>(meta);
   const auto* tp = static_cast<const int32_t*>(trans);

@@ -58,9 +58,7 @@ def dfa_scan_rows(tables: DfaTables, init_state, data, lengths, *,
     one launch (the contract of `dfa_scan_batch`, over `tables`).
 
     placement : "shared" or "global" table placement (CUDA only); by
-                default shared when the row mode's step table (8 bytes
-                a (state, class): the next state and its accept id) fits
-                SHARED_TABLE_LIMIT.
+                default `placement_of(tables, None, "rows")`.
     On a CPU tensor it runs the plain version over the same tables."""
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError("data must be a [B, L] uint8 tensor")
@@ -91,9 +89,8 @@ def dfa_scan_rows(tables: DfaTables, init_state, data, lengths, *,
         data.data_ptr(), B, L, lens.data_ptr(), states.data_ptr(),
         tables.trans.data_ptr(), tables.b2c.data_ptr(),
         tables.accept.data_ptr(), tables.S, tables.C,
-        int(placement_of(tables, placement, 8 * tables.S * tables.C)
-            == "shared"), plane.data_ptr(),
-        finals.data_ptr(), stream)
+        int(placement_of(tables, placement, "rows") == "shared"),
+        plane.data_ptr(), finals.data_ptr(), stream)
     if rc:
         raise RuntimeError("dfa_scan_rows launch failed: "
                            + lib.hs_dfa_scan_error(rc).decode())

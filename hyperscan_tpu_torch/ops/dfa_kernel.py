@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -53,9 +54,18 @@ CHUNK = 512       # H + CS: the positions a chunk's thread steps through
 H_ALIGN = 4       # halos round up to this (the reference's T_BLOCK)
 MAX_HALO = 256    # engines deeper than this take the speculative scan
 SPEC_CS = 512     # speculative chunk body size (no halo)
-# tables up to this many bytes go to shared memory, larger ones are read
-# from global memory (L2-resident)
-SHARED_TABLE_LIMIT = 96 * 1024
+# Step tables: one entry a (state, class), 4 bytes in the chunk scan (4 x
+# next state x C and the next state's accept id, 16 bits each) and 8 in
+# the row mode (next state x C, accept id). Each mode builds its table in
+# shared memory a block when it fits that mode's limit here (and, for the
+# chunk scan, the 16-bit packing); larger DFAs are read as trans and accept
+# from global memory (L2-resident). On the H100 (PERF.md, from
+# tools_torch_kernel_ab.py) shared tables were faster up to S x C = 12,288
+# in the chunk scan, so its limit is the packing's own; in the row mode up
+# to 6,144 (48 KiB), and slower at 12,288 (96 KiB), where a one-warp block
+# a table leaves two warps an SM.
+TABLE_LIMITS = {"chunks": 64 * 1024, "rows": 48 * 1024}
+ENTRY_BYTES = {"chunks": 4, "rows": 8}
 # chunks per step of the plain version: bounds its memory
 _PLAIN_CHUNKS = 1 << 14
 
@@ -83,6 +93,15 @@ class DfaTables:
     @property
     def nbytes(self) -> int:
         return 4 * (self.S * self.C + self.S)
+
+    def step_bytes(self, mode: str) -> int:
+        """Bytes of `mode`'s shared step table ("chunks" or "rows")."""
+        return ENTRY_BYTES[mode] * self.S * self.C
+
+    @functools.cached_property
+    def max_accept(self) -> int:
+        """The largest accept id (read from the device once)."""
+        return int(self.accept.max()) if self.accept.numel() else 0
 
 
 def device_tables(engine, device) -> DfaTables:
@@ -223,7 +242,7 @@ def dfa_scan_chunks(corpus_u8: torch.Tensor, tables: DfaTables,
     H         : the halo: records only for t >= H
     capacity  : record slots
     placement : "shared" or "global" table placement (CUDA only); by
-                default shared when the tables fit SHARED_TABLE_LIMIT
+                default `placement_of(tables, None, "chunks")`
     Returns (recs int32 [capacity, 3] = (chunk, t, accept id) for the
     first min(total, capacity) records, total int32 [1] = the exact
     record count, finals int32 [nch]). The kernel's record order is
@@ -240,6 +259,9 @@ def dfa_scan_chunks(corpus_u8: torch.Tensor, tables: DfaTables,
             tables.trans.device != corpus_u8.device:
         raise ValueError("corpus, chunk rows and tables lie on different "
                          "devices")
+    if not 1 <= tables.C <= 256:
+        raise ValueError(f"{tables.C} byte classes outside 1..256")
+    shared = placement_of(tables, placement, "chunks") == "shared"
     lib = _lib()
     dev = corpus_u8.device
     nch = meta.shape[0]
@@ -250,9 +272,9 @@ def dfa_scan_chunks(corpus_u8: torch.Tensor, tables: DfaTables,
     rc = lib.hs_dfa_scan(
         corpus_u8.data_ptr(), corpus_u8.numel(), meta.data_ptr(), nch,
         tables.trans.data_ptr(), tables.b2c.data_ptr(),
-        tables.accept.data_ptr(), tables.S, tables.C, H,
-        int(placement_of(tables, placement) == "shared"), recs.data_ptr(),
-        capacity, total.data_ptr(), finals.data_ptr(), stream)
+        tables.accept.data_ptr(), tables.S, tables.C, H, int(shared),
+        recs.data_ptr(), capacity, total.data_ptr(), finals.data_ptr(),
+        stream)
     if rc:
         raise RuntimeError("dfa_scan launch failed: "
                            + lib.hs_dfa_scan_error(rc).decode())
@@ -262,16 +284,26 @@ def dfa_scan_chunks(corpus_u8: torch.Tensor, tables: DfaTables,
 
 
 def placement_of(tables: DfaTables, placement: Optional[str],
-                 nbytes: Optional[int] = None) -> str:
-    """The table placement of a kernel-C launch: "shared" or "global" as
-    asked, by default shared when the `nbytes` the launch keeps in shared
-    memory (the tables' own size unless given) fit SHARED_TABLE_LIMIT."""
-    if placement is None:
-        need = tables.nbytes if nbytes is None else nbytes
-        placement = "shared" if need <= SHARED_TABLE_LIMIT else "global"
-    if placement not in ("shared", "global"):
+                 mode: str) -> str:
+    """The table placement of a kernel-C launch in `mode` ("chunks", the
+    chunk scan, or "rows", the row mode): "shared" or "global" as asked,
+    by default shared when the mode's step table fits TABLE_LIMITS[mode].
+    The chunk scan's shared entries pack the next state's table offset
+    and its accept id in 16 bits each: a DFA past that runs on global
+    tables, and asking it for shared ones raises."""
+    if placement not in (None, "shared", "global"):
         raise ValueError(f"unknown table placement {placement!r}")
-    return placement
+    if placement == "global":
+        return placement
+    packs = mode == "rows" or (
+        4 * tables.S * tables.C <= 1 << 16 and tables.max_accept < 1 << 16)
+    if placement == "shared":
+        if not packs:
+            raise ValueError("a DFA this large (or accept ids past 2^16) "
+                             "needs global tables")
+        return placement
+    return ("shared" if packs
+            and tables.step_bytes(mode) <= TABLE_LIMITS[mode] else "global")
 
 
 def _run_chunks(engine, corpus_t: torch.Tensor, tables: DfaTables,

@@ -173,6 +173,21 @@ def filter_tables(masks: torch.Tensor, b2c: Optional[torch.Tensor] = None,
                         None if cmasks is None else pack_tables(cmasks))
 
 
+def mask_tables(masks: np.ndarray, device) -> FilterTables:
+    """FilterTables of the [M, W, 256] byte masks (`lit.masks`) on
+    `device`: the byte tables, and the class tables beside them when the
+    alphabet compresses to 128 classes or fewer (`_class_split`)."""
+    masks = np.ascontiguousarray(masks, dtype=np.int32)
+    split = _class_split(masks)
+    if split is None:
+        return filter_tables(torch.from_numpy(masks.copy()).to(device))
+    b2c = np.concatenate([split[0][0], split[0][1]]).astype(np.uint8)
+    return filter_tables(
+        torch.from_numpy(masks.copy()).to(device),
+        torch.from_numpy(b2c).to(device),
+        torch.from_numpy(np.ascontiguousarray(split[1])).to(device))
+
+
 @dataclasses.dataclass
 class ConfirmTables:
     """`confirm_device_tables` on one device: one open-addressed slot
@@ -200,16 +215,7 @@ def device_tables(lit, device) -> Tuple[FilterTables, ConfirmTables]:
     cache = lit.__dict__.setdefault("_torch_tables", {})
     key = str(device)
     if key not in cache:
-        masks = np.ascontiguousarray(lit.masks, dtype=np.int32)
-        split = _class_split(masks)
-        if split is not None:
-            b2c = np.concatenate([split[0][0], split[0][1]]).astype(np.uint8)
-            ft = filter_tables(
-                torch.from_numpy(masks).to(device),
-                torch.from_numpy(b2c).to(device),
-                torch.from_numpy(np.ascontiguousarray(split[1])).to(device))
-        else:
-            ft = filter_tables(torch.from_numpy(masks).to(device))
+        ft = mask_tables(lit.masks, device)
         groups, parts, off = [], [], 0
         for (cl, mlo, mhi, slots, _dummy, probes) in confirm_device_tables(lit):
             T = int(slots.shape[0])

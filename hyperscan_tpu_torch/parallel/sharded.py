@@ -248,7 +248,8 @@ def sharded_teddy_count(corpus: np.ndarray, masks: np.ndarray,
     counted by kernel 7's count mode and summed. Shard 0 sees zero bytes
     before offset 0, so the count equals kernel 7's over the whole
     corpus, whatever the segmentation."""
-    from ..ops.teddy_words import filter_words_count, word_tables
+    from ..ops.teddy import mask_tables
+    from ..ops.teddy_words import filter_words_count
 
     mesh = _as_shard_mesh(mesh)
     devs = list(mesh.devices.flat)
@@ -261,7 +262,7 @@ def sharded_teddy_count(corpus: np.ndarray, masks: np.ndarray,
         key = str(dev)
         with _on(dev):
             if key not in tabs:
-                tabs[key] = word_tables(masks, dev)
+                tabs[key] = mask_tables(masks, dev)
             part = _tensor(corpus[lo - back:hi], dev)
             local.append(filter_words_count(part, tabs[key], back).long()
                          .sum())

@@ -169,6 +169,100 @@ def test_dfa_scan_kernel_equals_plain(card, case):
                        _sorted_rows(p_recs, p_tot, 3))
 
 
+def _chunk_route(route):
+    """(DFA, H, CS) of each caller of kernel C: the bounded DFA, the
+    unbounded DFA's speculative scan, a cyclic NFA's lazy-DFA core."""
+    if route == "bounded":
+        eng = _dfa_engine([r"ab[cd]{2,6}ef", r"[0-9]{3}-[0-9]{4}",
+                           r"GET /[a-z]{1,12} "])
+        return (eng, *DK.chunk_shape(eng))
+    if route == "spec_dfa":
+        db = compile_patterns([r"\d+[a-z]{3,}\d+"], [ht.HS_FLAG_DOTALL],
+                              grey=Grey(allow_teddy=False))
+        return db.engines[0], 0, DK.SPEC_CS
+    db = compile_patterns([r"(ax|by|cz|dw)+[!]"],
+                          grey=Grey(max_dfa_states=8, allow_teddy=False))
+    return db.engines[0].spec_dfa, 0, DK.SPEC_CS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "global"])
+@pytest.mark.parametrize("route", ["bounded", "spec_dfa", "spec_nfa"])
+def test_dfa_scan_routes_past_cap(card, route, placement):
+    """Kernel C on every caller's DFA and both table placements, entered
+    in carried (random) states over blocks with unaligned starts: the
+    total stays exact at a cap below it, and the records (as a set) and
+    finals equal the plain version's."""
+    eng, H, CS = _chunk_route(route)
+    blocks = _engine_blocks(21, (200_003, 0, 5, 4099, 70_001, 1))
+    for k in range(0, len(blocks), 2):  # matches for every route
+        blocks[k] = (b"12abc34 axbycz! dwdw! abdddef 555-1234 "
+                     + blocks[k])
+    corpus, starts, lens = flatten_blocks(blocks)
+    entry = np.random.default_rng(22).integers(0, eng.num_states,
+                                               len(blocks))
+    plan = DK.plan_chunks(starts, lens, H, CS, entry, eng.float_state)
+    ct = torch.from_numpy(corpus).to(card)
+    meta = torch.from_numpy(plan.meta).to(card)
+    tabs = DK.device_tables(eng, card)
+    p_recs, p_tot, p_fin = DK.dfa_scan_chunks_plain(ct, tabs, meta, H,
+                                                    1 << 20)
+    total = int(p_tot)
+    assert total > 20
+    want = set(map(tuple, p_recs[:total].tolist()))
+    T.reset_launches()
+    for cap in (total + 1, total // 5):  # every record; past the cap
+        recs, tot, fin = DK.dfa_scan_chunks(ct, tabs, meta, H, cap,
+                                            placement=placement)
+        assert int(tot) == total
+        assert torch.equal(fin, p_fin)
+        got = set(map(tuple, recs[:min(cap, total)].tolist()))
+        assert len(got) == min(cap, total) and got <= want
+    assert T.LAUNCHES["dfa_scan"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", [None, "shared", "global"])
+def test_dfa_modes_large_dfa_equal_plain(card, placement):
+    """A DFA of S x C = 12,288 (past the row mode's shared-table limit,
+    inside the chunk scan's): both modes of kernel C, at their default
+    placement and at each forced one, equal their plain versions."""
+    eng = _dfa_engine([r"a[^\n]{10}b"])
+    assert eng.trans.size == 12_288
+    tabs = DK.device_tables(eng, card)
+    assert DK.placement_of(tabs, None, "chunks") == "shared"
+    assert DK.placement_of(tabs, None, "rows") == "global"
+    H, CS = DK.chunk_shape(eng)
+    blocks = _engine_blocks(23, (200_003, 0, 4099, 70_001, 1))
+    corpus, starts, lens = flatten_blocks(blocks)
+    entry = np.random.default_rng(24).integers(0, eng.num_states,
+                                               len(blocks))
+    plan = DK.plan_chunks(starts, lens, H, CS, entry, eng.float_state)
+    ct = torch.from_numpy(corpus).to(card)
+    meta = torch.from_numpy(plan.meta).to(card)
+    p_recs, p_tot, p_fin = DK.dfa_scan_chunks_plain(ct, tabs, meta, H,
+                                                    1 << 20)
+    total = int(p_tot)
+    assert total > 20
+    recs, tot, fin = DK.dfa_scan_chunks(ct, tabs, meta, H, total,
+                                        placement=placement)
+    assert int(tot) == total and torch.equal(fin, p_fin)
+    assert set(map(tuple, recs.tolist())) == \
+        set(map(tuple, p_recs[:total].tolist()))
+    B, L = 64, 4099
+    data = np.frombuffer(corpus[:B * L].tobytes(), np.uint8).reshape(B, L)
+    d_t = torch.from_numpy(data.copy()).to(card)
+    l_t = torch.full((B,), L, dtype=torch.int32, device=card)
+    l_t[::7] = 1000
+    a_k, f_k = D.dfa_scan_rows(tabs, int(eng.start_state), d_t, l_t,
+                               placement=placement)
+    a_p, f_p = D.dfa_scan_batch_plain(tabs.trans.view(tabs.S, tabs.C),
+                                      tabs.b2c, tabs.accept,
+                                      int(eng.start_state), d_t, l_t)
+    assert torch.equal(a_k, a_p) and torch.equal(f_k, f_p)
+    assert int((a_p != 0).sum()) > 20
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pat", [r".*x.{8}(y|z)$", r".*a.{60}b"])
 def test_nfa_layered_kernel_equals_plain(card, pat):
@@ -344,18 +438,21 @@ WORD_PATS = (["attack%d" % i for i in range(300)]  # W = 2 words
 @pytest.mark.parametrize("n", [(1 << 20) + 13, 65536 + 7, 100, 1, 0])
 def test_teddy_words_kernel_equals_plain(card, n):
     db = ht.compile_multi(WORD_PATS, ids=list(range(len(WORD_PATS))))
-    masks = TW.word_tables(db.lit.masks, card)
+    masks = T.mask_tables(db.lit.masks, card)
     c = _corpus(n, 8)
     for off in range(0, n - 9, 1001):
         c[off:off + 8] = np.frombuffer(b"attack%02d" % (off % 97), np.uint8)
     corpus = torch.from_numpy(c).to(card)
     for start in sorted({0, min(n, 7), n // 2}):
         cnt_p, pos_p, words_p = TW.filter_words_plain(corpus, masks, start)
-        cnt_k = TW.filter_words_count(corpus, masks, start)
+        cnt_k, seg_k = TW.filter_words_count(corpus, masks, start,
+                                             segments=True)
         assert torch.equal(cnt_k, cnt_p)
+        assert torch.equal(seg_k, TW.segment_counts(pos_p, n, start))
+        assert torch.equal(TW.filter_words_count(corpus, masks, start), cnt_p)
         total = pos_p.numel()
         for cap in (total + 5, max(1, total // 3)):
-            pos_k, words_k = TW.filter_words_list(corpus, masks, cnt_k, cap,
+            pos_k, words_k = TW.filter_words_list(corpus, masks, seg_k, cap,
                                                   start)
             k = min(cap, total)
             assert torch.equal(pos_k[:k], pos_p[:k])
@@ -363,6 +460,38 @@ def test_teddy_words_kernel_equals_plain(card, n):
             assert not pos_k[k:].any() and not words_k[:, k:].any()
         if n > 1000 and start == 0:
             assert total > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_classes", [True, False])
+@pytest.mark.parametrize("n", [(1 << 20) + 13, 3 * 65536 + 517])
+def test_teddy_words_table_routes_equal_plain(card, use_classes, n):
+    """Kernel 7 with each table route forced, at an unaligned length with
+    a look-back head: cell and segment counts, positions and words equal
+    the plain version (byte tables) exactly, and the list stops at cap
+    without losing the count."""
+    db = ht.compile_multi(WORD_PATS, ids=list(range(len(WORD_PATS))))
+    masks = T.mask_tables(db.lit.masks, card)
+    assert masks.cmasks is not None  # the alphabet compresses
+    c = _corpus(n, 13)
+    for off in range(0, n - 9, 701):
+        c[off:off + 8] = np.frombuffer(b"attack%02d" % (off % 89), np.uint8)
+    corpus = torch.from_numpy(c).to(card)
+    start = 8 + 3  # a shard's look-back head, unaligned
+    cnt_p, pos_p, words_p = TW.filter_words_plain(corpus, masks, start)
+    total = pos_p.numel()
+    assert total > 500
+    cnt_k, seg_k = TW.filter_words_count(corpus, masks, start, segments=True,
+                                         use_classes=use_classes)
+    assert torch.equal(cnt_k, cnt_p)
+    assert torch.equal(seg_k, TW.segment_counts(pos_p, n, start))
+    T.reset_launches()
+    for cap in (total, total // 7):
+        pos_k, words_k = TW.filter_words_list(corpus, masks, seg_k, cap,
+                                              start, use_classes=use_classes)
+        assert torch.equal(pos_k, pos_p[:cap])
+        assert torch.equal(words_k, words_p[:, :cap])
+    assert T.LAUNCHES["teddy_words_list"] == 2
 
 
 @pytest.mark.cuda

@@ -6,7 +6,7 @@
   versions read, and a plain filter over the packed layout finds exactly
   the candidates of `filter_compact_plain`, for W in {1, 2, 3, 4, 5, 8}
   and both table kinds.
-- The device-table functions (`device_tables`, `word_tables`, the gate's
+- The device-table functions (`device_tables`, `mask_tables`, the gate's
   filter view) build the packed layout beside the plain one.
 - `dfa_scan_rows` (kernel C's row mode; its CPU branch is the plain
   version) equals the JAX package's `dfa_scan_batch` at row lengths that
@@ -114,7 +114,7 @@ def test_device_tables_build_both_layouts():
     assert torch.equal(ft.packed, PT.pack_tables(ft.masks))
     assert ft.cmasks is not None
     assert torch.equal(ft.cpacked, PT.pack_tables(ft.cmasks))
-    wt = TW.word_tables(lit.masks, "cpu")
+    wt = PT.mask_tables(lit.masks, "cpu")
     assert torch.equal(wt.masks, ft.masks) and torch.equal(wt.packed,
                                                            ft.packed)
     gt = PG.device_gate_table(lit, "cpu")

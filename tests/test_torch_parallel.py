@@ -290,7 +290,7 @@ def test_teddy_scan_equals_reference(teddy_masks, n):
 def test_teddy_words_modes_and_lookback(teddy_masks):
     """Count mode over a tail after a look-back head equals the list's
     count; list mode clamps at cap but never loses the count."""
-    masks = TW.word_tables(teddy_masks, "cpu")
+    masks = PT.mask_tables(teddy_masks, "cpu")
     rng = np.random.default_rng(2)
     c = rng.integers(0, 256, 3 * PT.CELL + 5).astype(np.uint8)
     for off in range(0, len(c) - 9, 1001):
@@ -299,13 +299,14 @@ def test_teddy_words_modes_and_lookback(teddy_masks):
     counts, pos, words = TW.filter_words_plain(c, masks)
     assert counts.sum() == pos.numel() > 100
     for start in (0, 7, PT.CELL + 3):
-        cnt = TW.filter_words_count(c, masks, start)
+        cnt, segs = TW.filter_words_count(c, masks, start, segments=True)
         keep = pos >= start
-        assert int(cnt.sum()) == int(keep.sum()) > 5
-        p, w = TW.filter_words_list(c, masks, cnt, 5, start)
+        assert int(cnt.sum()) == int(segs.sum()) == int(keep.sum()) > 5
+        p, w = TW.filter_words_list(c, masks, segs, 5, start)
         assert torch.equal(p, (pos[keep] - start)[:5].int())
         assert torch.equal(w, words[:, keep][:, :5])
-    p, w = TW.filter_words_list(c, masks, counts, pos.numel() + 3)
+    segs = TW.filter_words_count(c, masks, segments=True)[1]
+    p, w = TW.filter_words_list(c, masks, segs, pos.numel() + 3)
     assert torch.equal(p[:-3], pos) and torch.equal(w[:, :-3], words)
     assert not p[-3:].any() and not w[:, -3:].any()  # 0 past the total
 

@@ -1,25 +1,38 @@
-"""Times the port's filter-loop kernels and its batch DFA scan, for two
+"""Times the port's filter-loop kernels and its DFA scans, for two
 checkouts of the port compared on one card.
 
 The kernels that share the Teddy filter loop (csrc/teddy_filter.cuh) at
 the literal main path's shape (the 10k bench ruleset over 512 MiB iid):
 kernel A in compact and plane mode, the gate, the survivor-row rescan,
-kernel 4 (kconfirm) at stages 0-3, kernel 7 in count and list mode; and
+kernel 4 (kconfirm) at stages 0-3, kernel 7 in count and list mode and
+both in turn (over the structured corpus too), and `teddy_scan_tensor`
+(count, cumsum, list and the fetch of the candidates); kernel C's
+chunk scan (records mode) with the bounded bench DFA over 256 MiB as one
+block and as 16,384 x 16 KiB blocks, with its tables in shared and in
+global memory, and the two speculative routes (H = 0: the unbounded DFA,
+the cyclic NFA's lazy-DFA core) over the 256 MiB block;
 `dfa_scan_batch` with the bounded bench DFA over 16,384 x 16 KiB rows
 (the sharded DFA path's batch), over 4,096 of them (one shard of four)
-and over 32 (a single warp of rows: the serial chain alone). Each time is the mean of CUDA events over `--reps` calls after a
-warm-up call. Only calls that the port has had since its kernel 7 and
-batch scan existed are used, so a parent checkout can be timed by the
-same script.
+and over 32 (a single warp of rows: the serial chain alone); and both
+DFA modes (the chunk scan over the 256 MiB block, the row mode over the
+16,384 rows) with larger bounded DFAs (S x C from 3,072 to 12,288), their
+tables forced into shared and into global memory. Each time
+is the mean of CUDA events over `--reps` calls after a warm-up call.
+Only calls that the port has had since its kernel 7 and batch scan
+existed are used (kernel 7's list mode takes the per-segment counts
+where the checkout's count mode has them, its per-cell counts before),
+so a parent checkout can be timed by the same script.
 
 Usage, on a machine with a CUDA card:
 
     python3 tools_torch_kernel_ab.py [--root DIR] [--db FILE] [--reps 10]
+                                     [--part all|literal|dfa]
 
 `--root` is the checkout whose `hyperscan_tpu_torch` is timed (this one by
 default; its kernels are built there); `--db` caches the serialized 10k
-database (made when missing), so runs over two checkouts compile it once.
-Prints one JSON line: the card's name and power limit, the build seconds,
+database (made when missing), so runs over two checkouts compile it once;
+`--part literal` times only the Teddy kernels, `--part dfa` only the DFA
+scans. Prints one JSON line: the card's name and power limit, the build seconds,
 and each kernel's ms.
 """
 
@@ -32,6 +45,10 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
+LARGE_DFA_K = (8, 9, 10)  # S x C = 3,072, 6,144, 12,288
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
@@ -39,6 +56,8 @@ def main(argv=None) -> int:
         __file__)))
     ap.add_argument("--db", default=None)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--part", choices=("all", "literal", "dfa"),
+                    default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -56,6 +75,8 @@ def main(argv=None) -> int:
     from hyperscan_tpu_torch.ops import teddy_gate as G
     from hyperscan_tpu_torch.ops import teddy_kconfirm as K
     from hyperscan_tpu_torch.ops import teddy_words as TW
+    from hyperscan_tpu_torch.database import compile_patterns
+    from hyperscan_tpu_torch.grey import Grey
     from hyperscan_tpu_torch.tools.benchdata import gen_corpus, patterns
     import chip_smoke as CS
 
@@ -68,24 +89,6 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    if args.db and os.path.exists(args.db):
-        with open(args.db, "rb") as f:
-            db = ht.deserialize_database(f.read())
-    else:
-        pats, ids = patterns(10_000)
-        db = ht.compile_multi(pats, ids=ids)
-        if args.db:
-            with open(args.db, "wb") as f:
-                f.write(ht.serialize_database(db))
-    lit = db.lit
-    corpus = gen_corpus(512 << 20, 2, "iid")
-    ct = T.corpus_tensor(corpus, dev)
-    ft, _ct = T.device_tables(lit, dev)
-    gt = G.device_gate_table(lit, dev)
-    kt = K.confirm_planes(lit, dev)
-    # the byte tables of kernel 7, made by this checkout's own function
-    make_words = getattr(TW, "word_tables", None) or TW.masks_tensor
-    wt = make_words(lit.masks, dev)
 
     def ms(fn):
         fn()
@@ -99,33 +102,144 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / args.reps
 
+    def ms_or_error(fn):
+        # a placement a checkout refuses for a DFA this large is reported
+        try:
+            return ms(fn)
+        except (RuntimeError, ValueError) as e:
+            return f"error: {e}"
+
     out = {}
-    out["compact"] = ms(lambda: T.filter_compact(ct, ft, 256,
-                                                 use_classes=True))
-    out["plane"] = ms(lambda: T.filter_plane(ct, ft, use_classes=True))
-    out["gate"] = ms(lambda: G.gate_rows(ct, gt))
-    flags, _k = G.gate_rows(ct, gt)
-    out["rescan"] = ms(lambda: G.rescan_rows(ct, ft, flags, 256))
-    for s in (0, 1, 2, 3):
-        out[f"kconfirm stage {s}"] = ms(lambda: K.filter_kconfirm(
-            ct, ft, kt, use_classes=True, stage=s))
-    cnt = TW.filter_words_count(ct, wt)
-    total = int(cnt.long().sum())
-    out["words count"] = ms(lambda: TW.filter_words_count(ct, wt))
-    out["words list"] = ms(lambda: TW.filter_words_list(ct, wt, cnt,
-                                                        max(1, total)))
-    del ct, flags, cnt
-    eng = CS.engine_dbs(ht)["bounded_dfa"][0].engines[0]
-    tabs = DK.device_tables(eng, dev)
-    rows = CS.ENGINE_BYTES // CS.ENGINE_BLOCK
-    d_t, l_t, _i = CS.dfa_batch_inputs(
-        torch, eng, CS.gen_engine_corpus(CS.ENGINE_BYTES, 5), rows, 7)
-    args_ = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
-             int(eng.start_state))
-    out["dfa_scan_batch"] = ms(lambda: D.dfa_scan_batch(*args_, d_t, l_t))
-    for q in (rows // 4, 32):  # one shard of four; one warp of rows
-        out[f"dfa_scan_batch {q} rows"] = ms(
-            lambda: D.dfa_scan_batch(*args_, d_t[:q], l_t[:q]))
+
+    def literal():
+        """The filter-loop kernels and kernel 7 over 512 MiB; returns
+        kernel 7's candidate count over the iid corpus."""
+        if args.db and os.path.exists(args.db):
+            with open(args.db, "rb") as f:
+                db = ht.deserialize_database(f.read())
+        else:
+            pats, ids = patterns(10_000)
+            db = ht.compile_multi(pats, ids=ids)
+            if args.db:
+                with open(args.db, "wb") as f:
+                    f.write(ht.serialize_database(db))
+        lit = db.lit
+        corpus = gen_corpus(512 << 20, 2, "iid")
+        ct = T.corpus_tensor(corpus, dev)
+        ft, _ct = T.device_tables(lit, dev)
+        gt = G.device_gate_table(lit, dev)
+        kt = K.confirm_planes(lit, dev)
+        # kernel 7's tables, made by this checkout's own function
+        make_words = (getattr(T, "mask_tables", None)
+                      or getattr(TW, "word_tables", None) or TW.masks_tensor)
+        wt = make_words(lit.masks, dev)
+
+        out["compact"] = ms(lambda: T.filter_compact(ct, ft, 256,
+                                                     use_classes=True))
+        out["plane"] = ms(lambda: T.filter_plane(ct, ft, use_classes=True))
+        out["gate"] = ms(lambda: G.gate_rows(ct, gt))
+        flags, _k = G.gate_rows(ct, gt)
+        out["rescan"] = ms(lambda: G.rescan_rows(ct, ft, flags, 256))
+        for s in (0, 1, 2, 3):
+            out[f"kconfirm stage {s}"] = ms(lambda: K.filter_kconfirm(
+                ct, ft, kt, use_classes=True, stage=s))
+        segmented = hasattr(TW, "segment_counts")
+
+        def words(corpus_t, tag):
+            if segmented:
+                cnt, lst = TW.filter_words_count(corpus_t, wt, segments=True)
+            else:
+                cnt = lst = TW.filter_words_count(corpus_t, wt)
+            total = int(cnt.long().sum())
+            out[f"words count{tag}"] = ms(lambda: TW.filter_words_count(
+                corpus_t, wt))
+            out[f"words list{tag}"] = ms(lambda: TW.filter_words_list(
+                corpus_t, wt, lst, max(1, total)))
+
+            def count_list():
+                if segmented:
+                    _c, segs = TW.filter_words_count(corpus_t, wt,
+                                                     segments=True)
+                else:
+                    segs = TW.filter_words_count(corpus_t, wt)
+                return TW.filter_words_list(corpus_t, wt, segs,
+                                            max(1, total))
+
+            out[f"words count+list{tag}"] = ms(count_list)
+            out[f"teddy_scan{tag}"] = ms(lambda: TW.teddy_scan_tensor(
+                corpus_t, wt, max(1, total)))
+            return total
+
+        total = words(ct, "")
+        if segmented:  # the byte-table route, forced
+            out["words count bytes"] = ms(lambda: TW.filter_words_count(
+                ct, wt, use_classes=False))
+        del ct, flags
+        words(T.corpus_tensor(gen_corpus(512 << 20, 1, "structured"), dev),
+              " structured")
+        return total
+
+    def dfa():
+        """Kernel C's chunk scan and row mode over 256 MiB."""
+        edbs = CS.engine_dbs(ht)
+        ecorpus = CS.gen_engine_corpus(CS.ENGINE_BYTES, 5)
+        for route in ("bounded_dfa", "unbounded_dfa", "cyclic_nfa"):
+            e = edbs[route][0].engines[0]
+            d = e.spec_dfa if route == "cyclic_nfa" else e
+            H, cs = DK.chunk_shape(d) if route == "bounded_dfa" else \
+                (0, DK.SPEC_CS)
+            shapes = ("one_block", "blocks_16k") if route == "bounded_dfa" \
+                else ("one_block",)
+            for shape in shapes:
+                lens = [len(b) for b in CS.engine_blocks(ecorpus, shape)]
+                corpus_t, tabs, meta, _p, _s, _l = CS.chunk_inputs(
+                    torch, d, ecorpus, lens, H, cs,
+                    np.full(len(lens), d.start_state))
+                _r, tot, _f = DK.dfa_scan_chunks(corpus_t, tabs, meta, H, 1)
+                cap = max(1, int(tot))
+                for placement in ("shared", "global"):
+                    out[f"dfa_scan {route} {shape} {placement}"] = ms(
+                        lambda: DK.dfa_scan_chunks(
+                            corpus_t, tabs, meta, H, cap,
+                            placement=placement))
+                del corpus_t
+        eng = edbs["bounded_dfa"][0].engines[0]
+        tabs = DK.device_tables(eng, dev)
+        rows = CS.ENGINE_BYTES // CS.ENGINE_BLOCK
+        d_t, l_t, _i = CS.dfa_batch_inputs(torch, eng, ecorpus, rows, 7)
+        # larger bounded DFAs (a[^\n]{k}b: S = 3 x 2^k states, C = 4), both
+        # placements forced, in the chunk scan over the 256 MiB block and in
+        # the row mode over the 16,384 rows: where each mode's shared tables
+        # stop paying
+        for k in LARGE_DFA_K:
+            big = compile_patterns([r"a[^\n]{%d}b" % k], [0], grey=Grey(
+                allow_teddy=False)).engines[0]
+            H, cs = DK.chunk_shape(big)
+            corpus_t, btabs, meta, _p, _s, _l = CS.chunk_inputs(
+                torch, big, ecorpus, [len(ecorpus)], H, cs,
+                np.full(1, big.start_state))
+            _r, tot, _f = DK.dfa_scan_chunks(corpus_t, btabs, meta, H, 1,
+                                             placement="global")
+            cap = max(1, int(tot))
+            tag = f"S*C={btabs.S * btabs.C}"
+            for placement in ("shared", "global"):
+                out[f"dfa_scan {tag} {placement}"] = ms_or_error(
+                    lambda: DK.dfa_scan_chunks(corpus_t, btabs, meta, H, cap,
+                                               placement=placement))
+                out[f"dfa_scan_rows {tag} {placement}"] = ms_or_error(
+                    lambda: D.dfa_scan_rows(btabs, big.start_state, d_t, l_t,
+                                            placement=placement))
+            del corpus_t
+        args_ = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
+                 int(eng.start_state))
+        out["dfa_scan_batch"] = ms(lambda: D.dfa_scan_batch(*args_, d_t, l_t))
+        for q in (rows // 4, 32):  # one shard of four; one warp of rows
+            out[f"dfa_scan_batch {q} rows"] = ms(
+                lambda: D.dfa_scan_batch(*args_, d_t[:q], l_t[:q]))
+
+    total = literal() if args.part != "dfa" else None
+    if args.part != "literal":
+        dfa()
     print(json.dumps({"root": root, "card": card, "build_s": build_s,
                       "candidates": total, "ms": out}), flush=True)
     return 0
