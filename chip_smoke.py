@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero:
    states, H = 0 with carried entry states, the lazy-DFA core of a
    cyclic NFA; each with shared and with global tables, and at a cap
    below its total, which must stay exact) and kernel D (nfa_layered:
-   EOD accepts, P > 48) against theirs over a 16 MB batch of blocks.
+   EOD accepts, P > 48, the bench engine, a 45-class engine and P = 502)
+   against theirs over a 16 MB batch of blocks.
    Then (2c) the literal families' kernels on the 10k ruleset at 16 MB,
    structured and iid, and on a flood database (`aaaa` over a run of
    `a`): the gate (row flags, K), the survivor-row
@@ -142,7 +143,7 @@ def check(cond: bool, msg: str) -> None:
 # --- the bench rulesets and corpora (the generator of bench.py, copied) -----
 
 from hyperscan_tpu_torch.tools.benchdata import (  # noqa: E402
-    PLANT_AT, PLANTS, gen_corpus, patterns)
+    NFA_ENGINES, PLANT_AT, PLANTS, gen_corpus, patterns, plant_many_class)
 
 
 # --- card queries and timing -------------------------------------------------
@@ -260,7 +261,42 @@ LARGE_DFA = r"a[^\n]{10}b"
 ENGINE_PLANTS = [b"abcdef", b"abddddef", b"555-1212", b"GET /index ",
                  b"12abc34", b"9zzzzzzzz8", b"axbycz!", b"dwdw!",
                  b"a" + b"q" * 18 + b"b", b"x12345678y"]
-INT_OPS_PER_S = 67e12  # H100 SXM scalar 32-bit rate (FP32 non-tensor)
+# 32-bit integer add, shift and bitwise AND/OR/XOR: 64 results a clock an
+# SM on compute capability 9.0 (the CUDA C++ Programming Guide's
+# arithmetic-instruction throughput table), times the SMs; times the SM
+# clock gives the card's integer rate
+INT_OPS_PER_CLK = 132 * 64
+
+
+def nfa_engine(name: str):
+    from hyperscan_tpu_torch.database import compile_patterns
+    from hyperscan_tpu_torch.grey import Grey
+
+    pat, grey = NFA_ENGINES[name]
+    return compile_patterns([pat], grey=Grey(**grey)).engines[0]
+
+
+def nfa_bound(plan, n: int, n_blocks: int, records: int, clock_hz) -> dict:
+    """Kernel D's bound over n bytes: the largest of three times, as the
+    three go through different pipes. Integer operations, per 32-byte word
+    of the n bytes: a position with k predecessors ORs their words (k - 1)
+    and takes the OR a byte on with its carry (one funnel shift), E in
+    all, then masks it with its class word and the bytes that continue a
+    block (one three-input LOP3), P in all; at 132 x 64 results a clock.
+    Lookups: one membership word a byte for each 32 classes, at the
+    shared-memory rate. Bytes: the corpus read once and the records and
+    block bounds written and read once, at the memory rate."""
+    words = -(-n // 32)
+    int_ops = words * (plan.E + plan.P)
+    lookups = n * -(-plan.K // 32)
+    t_int = int_ops / (INT_OPS_PER_CLK * clock_hz) * 1e3
+    t_lookups = lookups / (SMEM_LOOKUPS_PER_CLK * clock_hz) * 1e3
+    t_ops = max(t_int, t_lookups)
+    t_bytes = (n + records * 8 + n_blocks * 21) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "word_ops": int_ops,
+            "lookups": lookups, "t_int": t_int, "t_lookups": t_lookups,
+            "t_ops": t_ops, "t_bytes": t_bytes,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def gen_engine_corpus(n: int, salt: int) -> np.ndarray:
@@ -361,13 +397,18 @@ def compare_dfa(torch, DK, corpus_t, tabs, meta, H,
 
 
 def compare_nfa(torch, NK, corpus_t, plan, bs, be, ba):
-    """Kernel D vs its plain version. Returns (kernel outputs, err)."""
+    """Kernel D vs its plain version, also at a cap below the record
+    total (which must stay exact). Returns (kernel outputs, err)."""
     cap = 1 << 22
     rk, tk, ek = NK.nfa_layered(corpus_t, plan, bs, be, ba, cap)
     rp, tp, ep = NK.nfa_layered_plain(corpus_t, plan, bs, be, ba, cap)
-    torch.cuda.synchronize()
-    check(int(tk) == int(tp) <= cap, "kernel D total != plain version")
     k = int(tp)
+    _r, t_small, _e = NK.nfa_layered(corpus_t, plan, bs, be, ba,
+                                     max(1, k // 3))
+    torch.cuda.synchronize()
+    check(int(tk) == k == int(t_small) and k <= cap,
+          f"kernel D total {int(tk)} (at a cap below it {int(t_small)}) != "
+          f"plain version's {k}")
 
     def rows(r):
         r = r[:k].long()
@@ -385,7 +426,8 @@ def engine_kernel_checks(torch, edbs):
     memory and at a cap below its total: a bounded DFA from its start
     state and from carried states, H = 0 with carried entry states, and
     the spec_dfa of a cyclic NFA, and LARGE_DFA; kernel D: EOD accepts,
-    and P > 48."""
+    P > 48, the bench engine and NFA_ENGINES (45 classes, P = 502), each
+    at a cap below its total too."""
     from hyperscan_tpu_torch.database import compile_patterns
     from hyperscan_tpu_torch.grey import Grey
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
@@ -422,12 +464,16 @@ def engine_kernel_checks(torch, edbs):
             f"step table {tabs.step_bytes('chunks')} B (default "
             f"{DK.placement_of(tabs, None, 'chunks')}), {int(tot)} records, "
             "shared and global tables, also past a cap: exact")
-    for name, pat in (("EOD accepts", r".*x.{8}(y|z)$"),
-                      ("P > 48", r".*a.{60}b")):
-        eng = compile_patterns([pat], grey=Grey(
-            max_dfa_states=8, allow_teddy=False)).engines[0]
-        check(NK.nfa_device_eligible(eng), f"{pat} not device eligible")
-        c2 = corpus.copy()
+    nfa_cases = [(name, compile_patterns([pat], grey=Grey(
+        max_dfa_states=8, allow_teddy=False)).engines[0])
+        for name, pat in (("EOD accepts", r".*x.{8}(y|z)$"),
+                          ("P > 48", r".*a.{60}b"))]
+    nfa_cases += [("the bench engine", edbs["acyclic_nfa"][0].engines[0])]
+    nfa_cases += [(f"{name} engine", nfa_engine(name))
+                  for name in NFA_ENGINES]
+    for name, eng in nfa_cases:
+        check(NK.nfa_device_eligible(eng), f"{name} not device eligible")
+        c2 = plant_many_class(corpus, 1000, 65_537)
         ends = np.cumsum(lens)
         for e in ends[[0, 2, 4]]:  # EOD accepts at three block ends
             c2[e - 10:e] = np.frombuffer(b"x\xff2345678z", np.uint8)
@@ -441,6 +487,8 @@ def engine_kernel_checks(torch, edbs):
         err_d = max(err_d, e)
         check(name != "EOD accepts" or int((eod != 0).sum()) == 3,
               "EOD bits missing")
+        check(name == "EOD accepts" or int(tot) > 10,
+              f"kernel D check {name}: too few records")
         log(f"kernel check D, {name}: P={plan.P}, edges {plan.E}, classes "
             f"{plan.K}, {int(tot)} records, {int((eod != 0).sum())} EOD "
             f"blocks: exact")
@@ -560,15 +608,30 @@ def engine_kernel_times(torch, edbs, corpus, clock_hz) -> dict:
                     corpus_t, plan, bs, be, ba, cap), 10)
                 r["plain_ms"] = cuda_ms(torch, lambda: NK.nfa_layered_plain(
                     corpus_t, plan, bs, be, ba, cap), 1)
-                n = corpus_t.numel()
-                seg = NK.segment_bytes(plan.halo)
-                words = -(-n // seg) * (seg + plan.halo) // 32
-                ops = words * (plan.P + plan.E) + n * plan.K
-                t_ops = ops / INT_OPS_PER_S * 1e3
-                t_bytes = (n + int(tot) * 8 + len(lens) * 21) \
-                    / HBM_BYTES_PER_S * 1e3
-                r.update(records=int(tot), err=err, word_ops=ops,
+                b = nfa_bound(plan, corpus_t.numel(), len(lens), int(tot),
+                              clock_hz)
+                r.update(records=int(tot), err=err, word_ops=b["word_ops"],
                          kernel="nfa_layered")
+                t_ops, t_bytes = b["t_ops"], b["t_bytes"]
+                # the other engines at the same shape, each exact first
+                pc = plant_many_class(corpus, 1000, 65_537)
+                pc_t = torch.from_numpy(pc).to(DEVICE)
+                r["engines"] = {}
+                for name in NFA_ENGINES:
+                    ep = NK.device_plan(nfa_engine(name), DEVICE)
+                    (_rk, t2, _e), e2 = compare_nfa(torch, NK, pc_t, ep, bs,
+                                                    be, ba)
+                    r["err"] = max(r["err"], e2)
+                    c2 = max(1, int(t2))
+                    r["engines"][name] = dict(
+                        P=ep.P, K=ep.K, E=ep.E, records=int(t2),
+                        ms=cuda_ms(torch, lambda: NK.nfa_layered(
+                            pc_t, ep, bs, be, ba, c2), 10),
+                        plain_ms=cuda_ms(torch, lambda: NK.nfa_layered_plain(
+                            pc_t, ep, bs, be, ba, c2), 1),
+                        **nfa_bound(ep, pc_t.numel(), len(lens), int(t2),
+                                    clock_hz))
+                del pc, pc_t
             else:
                 spec = route != "bounded_dfa"
                 d = eng.spec_dfa if route == "cyclic_nfa" else eng
@@ -822,7 +885,9 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
 
     def bound(n_bytes, lookups, int_ops=0):
         t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_o = (lookups / lookups_per_s + int_ops / INT_OPS_PER_S) * 1e3
+        # the shared-memory and integer pipes run side by side
+        t_o = max(lookups / lookups_per_s,
+                  int_ops / (INT_OPS_PER_CLK * clock_hz)) * 1e3
         return {"bound_ms": max(t_b, t_o),
                 "bound_by": "operations" if t_o > t_b else "bytes"}
 
@@ -1450,7 +1515,9 @@ def stage_probe_times(torch, T, db, corpus, clock_hz) -> dict:
 
     def bound(n_bytes, int_ops=0):
         t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_o = (lookups / lookups_per_s + int_ops / INT_OPS_PER_S) * 1e3
+        # the shared-memory and integer pipes run side by side
+        t_o = max(lookups / lookups_per_s,
+                  int_ops / (INT_OPS_PER_CLK * clock_hz)) * 1e3
         return {"bound_ms": max(t_b, t_o),
                 "bound_by": "operations" if t_o > t_b else "bytes"}
 
@@ -2370,7 +2437,13 @@ def main() -> int:
          "replaces": "hyperscan_tpu/ops/nfa_kernel.py:476",
          "launches": elaunch["nfa_layered"], "max_abs_err": err_d,
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-         "bound_by": d["bound_by"], "library_ms": None},
+         "bound_by": d["bound_by"], "library_ms": None,
+         # the other engines, 256 MiB as one block and as 16,384 blocks
+         "engines": {f"{name} {shape}": {
+             k: ekt[("acyclic_nfa", shape)]["engines"][name][k]
+             for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+             for name in NFA_ENGINES for shape in ("one_block",
+                                                   "blocks_16k")}},
         entry("teddy_gate", "teddy_gate.cu",
               "hyperscan_tpu/ops/teddy.py:1381", ferr["gate"], fr["gate"]),
         entry("teddy_rescan_rows", "teddy_filter_compact.cu",

@@ -23,9 +23,12 @@ byte. A position of depth d looks back d-1 bytes, so a body scanned after
 a halo of at least max_depth - 1 bytes is exact.
 
 One kernel covers every eligible engine: `nfa_layered`
-(csrc/nfa_layered.cu, kernel D) takes the engine's plan (topological
-order, predecessor lists, class bitmaps, flags) as small tensors, so no
-build per database is needed. The JAX package unrolls the engine into the
+(csrc/nfa_layered.cu, kernel D) takes the engine's plan as small
+tensors, so no build per database is needed: a program of one record a
+position (`kernel_program`: class, flags, predecessors in a register or
+in slots allotted by liveness, accept groups) and a byte -> class
+membership table (`membership_words`, from the class bitmaps `lut` that
+the plain version reads). The JAX package unrolls the engine into the
 traced program instead: a Pallas kernel for P <= 48 and an XLA sweep
 (`_make_scan_fn`) for the rest. The wrapper launches the kernel for a
 CUDA tensor and counts the launch in `LAUNCHES`; for a CPU tensor it runs
@@ -126,27 +129,127 @@ class NfaPlan:
     """The layered plan of one engine, positions renumbered by their
     topological rank (every predecessor has a lower rank)."""
 
-    info: torch.Tensor  # [P] int32 packed: class | flags | gid | eod gid
-    pred_ptr: torch.Tensor  # [P + 1] int32, CSR offsets
-    pred_idx: torch.Tensor  # [E] int32, predecessor ranks
-    cbits: torch.Tensor  # [K, 8] int32, 256-bit byte bitmap per class
     halo: int
-    # the same plan on the host, for the plain version's control flow
-    info_np: np.ndarray
+    # on the host, for the plain version's control flow
+    info_np: np.ndarray  # [P] int32 packed: class | flags | gid | eod gid
     preds: List[List[int]]
     lut: torch.Tensor  # [K, 256] bool, the class bitmaps as lookups
+    # kernel D's form of the plan (`kernel_program`)
+    prog: torch.Tensor  # [P, 4] int32, one record a position
+    extra: torch.Tensor  # [X] int32, slot predecessors past two
+    gvals: torch.Tensor  # [2 * MAX_DEVICE_SETS] int32, group -> bit
+    mem: torch.Tensor  # [ceil(K / 32), 256] int32, byte -> classes
+    slots: int  # live words a thread keeps besides r - 1's
+    groups: Tuple[int, int]  # distinct accept and EOD accept sets
 
     @property
     def P(self) -> int:
-        return int(self.info.shape[0])
+        return int(self.info_np.shape[0])
 
     @property
     def K(self) -> int:
-        return int(self.cbits.shape[0])
+        return int(self.lut.shape[0])
 
     @property
     def E(self) -> int:
         return sum(len(q) for q in self.preds)
+
+
+# bit fields of one position's record in kernel D's program (x word)
+_P_PREV = 1 << 12  # r - 1 is a predecessor (its word is in a register)
+_P_OUT = 1 << 13  # the word is kept in a slot for a later successor
+_P_ACC_SHIFT = 14  # accept group index + 1 (0 = none), 5 bits
+_P_EOD_SHIFT = 19  # EOD accept group index + 1, 5 bits
+_P_PLAIN = 1 << 24  # PREV alone (and at most an accept of the one set)
+
+
+def membership_words(lut: np.ndarray) -> np.ndarray:
+    """The byte -> class-membership table kernel D looks bytes up in:
+    word w of byte b holds bit c - 32 w for every class c in 32 w ..
+    32 w + 31 that contains b. [ceil(K / 32), 256] int32, from the
+    class bitmaps `lut` [K, 256] bool."""
+    K = lut.shape[0]
+    kw = max(1, -(-K // 32))
+    bits = np.zeros((kw * 32, 256), np.uint64)
+    bits[:K] = lut
+    shifts = (np.arange(kw * 32, dtype=np.uint64) % 32)[:, None]
+    words = (bits << shifts).reshape(kw, 32, 256).sum(1)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def kernel_program(info: np.ndarray, preds: List[List[int]]):
+    """Kernel D's form of a plan: one 4-word record a position, the
+    predecessor slots past two of each, the accept-group values, the
+    number of slots and of groups.
+
+    The kernel keeps each position's word of the current 32 bytes only
+    as long as a later position reads it: in a register when the only
+    reader is the next position (a chain), else in a slot. A slot is
+    taken at the position's step and freed after its last reader's
+    (reads come before the write within a step, so the reader may take
+    it over). Record: x = class | float | anch | PREV (r - 1 is a
+    predecessor) | OUT (the word goes to a slot) | accept group + 1 <<
+    14 | EOD group + 1 << 19 | PLAIN (PREV and nothing else but an accept
+    where there is at most one accept set: the kernel's short path);
+    y = out slot | number of slot predecessors << 16; z = the first two
+    slot predecessors (16 bits each); w = where the rest start in
+    `extra`. gvals[q] = 1 << (g - 1) of accept group q,
+    gvals[MAX_DEVICE_SETS + q] that of EOD group q."""
+    P = len(preds)
+    last = [-1] * P  # last reader of each position
+    later = [False] * P  # read by a position other than the next one
+    for r, q in enumerate(preds):
+        for u in q:
+            last[u] = max(last[u], r)
+            if u != r - 1:
+                later[u] = True
+    acc_g = sorted({(int(v) >> _GID_SHIFT) & 31 for v in info} - {0})
+    eod_g = sorted({(int(v) >> _EOD_SHIFT) & 31 for v in info} - {0})
+    prog = np.zeros((P, 4), np.int64)
+    extra: List[int] = []
+    slot_of = [-1] * P
+    free: List[int] = []
+    n_slots = 0
+    for r in range(P):
+        v = int(info[r])
+        x = v & (_CLASS_MASK | _FLOAT | _ANCH)
+        ins = [slot_of[u] for u in preds[r] if u != r - 1]
+        if (r - 1) in preds[r]:
+            x |= _P_PREV
+        for u in preds[r]:
+            if slot_of[u] >= 0 and last[u] == r:
+                free.append(slot_of[u])
+        out = 0
+        if later[r]:
+            if free:
+                out = free.pop()
+            else:
+                out, n_slots = n_slots, n_slots + 1
+            slot_of[r] = out
+            x |= _P_OUT
+        g = (v >> _GID_SHIFT) & 31
+        if g:
+            x |= (acc_g.index(g) + 1) << _P_ACC_SHIFT
+        ge = (v >> _EOD_SHIFT) & 31
+        if ge:
+            x |= (eod_g.index(ge) + 1) << _P_EOD_SHIFT
+        if (x & ~_CLASS_MASK & ~(31 << _P_ACC_SHIFT) == _P_PREV
+                and not ins and len(acc_g) <= 1):
+            x |= _P_PLAIN
+        z = 0
+        for k, sl in enumerate(ins[:2]):
+            z |= sl << (16 * k)
+        prog[r] = (x, out | (len(ins) << 16), z, len(extra))
+        extra.extend(ins[2:])
+    gvals = np.zeros(2 * MAX_DEVICE_SETS, np.int64)
+    for q, g in enumerate(acc_g):
+        gvals[q] = 1 << (g - 1)
+    for q, g in enumerate(eod_g):
+        gvals[MAX_DEVICE_SETS + q] = 1 << (g - 1)
+    return (prog.astype(np.uint32).view(np.int32),
+            np.asarray(extra or [0], np.int32),
+            gvals.astype(np.uint32).view(np.int32), n_slots,
+            (len(acc_g), len(eod_g)))
 
 
 def device_plan(engine, device) -> NfaPlan:
@@ -169,24 +272,19 @@ def device_plan(engine, device) -> NfaPlan:
                        | (int(engine.accept_gid[p]) << _GID_SHIFT)
                        | (int(engine.accept_eod_gid[p]) << _EOD_SHIFT))
             preds.append(sorted(int(rank[u]) for u in meta["preds"][p]))
-        ptr = np.zeros(P + 1, np.int64)
-        ptr[1:] = np.cumsum([len(q) for q in preds])
-        idx = np.asarray([u for q in preds for u in q], np.int64)
         lut = np.zeros((len(meta["ranges"]), 256), bool)
         for k, rs in enumerate(meta["ranges"]):
             for (a, b) in rs:
                 lut[k, a:b + 1] = True
-        cbits = np.packbits(lut, axis=1, bitorder="little").view(np.int32)
+        prog, extra, gvals, n_slots, groups = kernel_program(info, preds)
 
-        def i32(a):
-            return torch.tensor(np.asarray(a, np.int64).astype(np.int32),
-                                device=device)
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         cache[key] = NfaPlan(
-            i32(info), i32(ptr), i32(idx if len(idx) else np.zeros(1)),
-            torch.tensor(cbits.reshape(-1, 8), device=device),
-            _halo(engine), info.astype(np.int32), preds,
-            torch.tensor(lut, device=device))
+            _halo(engine), info.astype(np.int32), preds, t(lut), t(prog),
+            t(extra), t(gvals),
+            t(membership_words(lut)), n_slots, groups)
     return cache[key]
 
 
@@ -288,8 +386,8 @@ def _lib():
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hs_nfa_layered.restype = ci
         lib.hs_nfa_layered.argtypes = [
-            vp, cll, vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, cll, cll, ci, ci,
-            vp, ci, vp, vp, vp]
+            vp, cll, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, ci,
+            cll, cll, ci, ci, vp, ci, vp, vp, vp]
         lib.hs_nfa_layered_error.restype = ctypes.c_char_p
         lib.hs_nfa_layered_error.argtypes = [ci]
         lib._typed = True
@@ -297,9 +395,11 @@ def _lib():
 
 
 def segment_bytes(halo: int) -> int:
-    """Body bytes per kernel thread: four halos at least, so the halo
-    re-read stays under a quarter of the work."""
-    return max(1024, 4 * halo)
+    """The least body bytes a kernel thread scans: four halos, so the
+    halo re-read stays under a fifth of the work. The launch raises it
+    so that the span's segments fill one wave of the card's resident
+    threads."""
+    return 4 * halo
 
 
 def nfa_layered(corpus_u8: torch.Tensor, plan: NfaPlan,
@@ -329,7 +429,7 @@ def nfa_layered(corpus_u8: torch.Tensor, plan: NfaPlan,
         raise ValueError(f"unsupported device {corpus_u8.device}")
     if corpus_u8.data_ptr() % 16:
         raise ValueError("corpus must be 16-byte aligned (vector loads)")
-    for t in (plan.info, bstart, bend, banch):
+    for t in (plan.prog, bstart, bend, banch):
         if t.device != corpus_u8.device:
             raise ValueError("corpus, plan and blocks lie on different "
                              "devices")
@@ -345,11 +445,12 @@ def nfa_layered(corpus_u8: torch.Tensor, plan: NfaPlan,
     hi_span = int(bend[-1])
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.hs_nfa_layered(
-        corpus_u8.data_ptr(), corpus_u8.numel(), plan.info.data_ptr(),
-        plan.pred_ptr.data_ptr(), plan.pred_idx.data_ptr(),
-        plan.cbits.data_ptr(), plan.P, plan.K, bstart.data_ptr(),
-        bend.data_ptr(), banch.data_ptr(), nb, lo_span, hi_span - lo_span,
-        plan.halo, segment_bytes(plan.halo), recs.data_ptr(), capacity,
+        corpus_u8.data_ptr(), corpus_u8.numel(), plan.prog.data_ptr(),
+        plan.extra.data_ptr(), plan.gvals.data_ptr(), plan.mem.data_ptr(),
+        plan.P, plan.K, plan.slots, plan.groups[0], plan.groups[1],
+        plan.extra.numel(), bstart.data_ptr(), bend.data_ptr(),
+        banch.data_ptr(), nb, lo_span, hi_span - lo_span, plan.halo,
+        segment_bytes(plan.halo), recs.data_ptr(), capacity,
         total.data_ptr(), eod.data_ptr(), stream)
     if rc:
         raise RuntimeError("nfa_layered launch failed: "

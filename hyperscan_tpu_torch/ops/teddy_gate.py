@@ -47,6 +47,7 @@ class GateTables:
 
     b2c: torch.Tensor  # [256] uint8 (the filter's class remap)
     gcm: torch.Tensor  # [M, 128] int32
+    vec: torch.Tensor  # [256, M] int32, the kernel's form (gate_vectors)
 
     @property
     def M(self) -> int:
@@ -59,6 +60,22 @@ class GateTables:
         [M, K, Wp] layout is `gcm` itself (a view: no padded words)."""
         g = self.gcm[:, None, :]
         return FilterTables(g, self.b2c, g, None, self.gcm[:, :, None])
+
+
+def gate_vectors(b2c: np.ndarray, gcm: np.ndarray) -> np.ndarray:
+    """The gate as the kernel reads it: byte b's vector of M words,
+    vec[b, m] = gcm[m, b2c[b]] (the class remap folded into the table).
+    [256, M] int32 from b2c [256] and gcm [M, 128]."""
+    b2c = np.asarray(b2c, np.int64)
+    return np.ascontiguousarray(np.asarray(gcm, np.int32)[:, b2c].T)
+
+
+def gate_tables(b2c: torch.Tensor, gcm: np.ndarray) -> GateTables:
+    """GateTables on b2c's device from the remap and the gate words."""
+    vec = gate_vectors(b2c.cpu().numpy(), gcm)
+    dev = b2c.device
+    return GateTables(b2c, torch.from_numpy(np.ascontiguousarray(
+        gcm, np.int32)).to(dev), torch.from_numpy(vec).to(dev))
 
 
 def device_gate_table(lit, device) -> Optional[GateTables]:
@@ -83,8 +100,7 @@ def device_gate_table(lit, device) -> Optional[GateTables]:
             rep = np.zeros(128, np.int64)  # class id -> its first byte
             for b in range(255, -1, -1):
                 rep[inv[b]] = b
-            gcm = np.ascontiguousarray(lit.gate_masks[:, 0, rep], np.int32)
-            cache[key] = GateTables(ft.b2c, torch.from_numpy(gcm).to(device))
+            cache[key] = gate_tables(ft.b2c, lit.gate_masks[:, 0, rep])
     return cache[key]
 
 
@@ -115,7 +131,7 @@ def _gate_lib():
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hs_teddy_gate.restype = ci
-        lib.hs_teddy_gate.argtypes = [vp, cll, vp, vp, ci, vp, vp, ci, vp]
+        lib.hs_teddy_gate.argtypes = [vp, cll, vp, ci, vp, vp, ci, vp]
         lib.hs_teddy_gate_error.restype = ctypes.c_char_p
         lib.hs_teddy_gate_error.argtypes = [ci]
         lib._typed = True
@@ -140,9 +156,13 @@ def gate_rows(corpus_u8: torch.Tensor, gate: GateTables
                         device=corpus_u8.device)
     counts = torch.empty(n_cells, dtype=torch.int32, device=corpus_u8.device)
     stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
-    rc = lib.hs_teddy_gate(corpus_u8.data_ptr(), n, gate.b2c.data_ptr(),
-                           gate.gcm.data_ptr(), gate.M, flags.data_ptr(),
-                           counts.data_ptr(), n_cells, stream)
+    if gate.vec.device != corpus_u8.device or \
+            gate.vec.shape != (256, gate.M):
+        raise ValueError("gate vectors must be [256, M] on the corpus's "
+                         "device")
+    rc = lib.hs_teddy_gate(corpus_u8.data_ptr(), n, gate.vec.data_ptr(),
+                           gate.M, flags.data_ptr(), counts.data_ptr(),
+                           n_cells, stream)
     if rc:
         raise RuntimeError("teddy_gate launch failed: "
                            + lib.hs_teddy_gate_error(rc).decode())

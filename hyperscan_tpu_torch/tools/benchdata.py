@@ -3,7 +3,10 @@
 carry bounded literal factors, and 4 KiB of planted matches spliced into
 corpora of printable bytes made from a formula.
 
-Used by chip_smoke.py and the stage probe (tools/kconf_probe.py).
+Also kernel D's wide bit-NFA engines and the plant of the 45-class one.
+
+Used by chip_smoke.py, the stage probe (tools/kconf_probe.py) and the
+port's kernel tests.
 """
 
 from __future__ import annotations
@@ -39,6 +42,33 @@ def patterns(n: int):
             pats.append(rf"gate{i}x(ab|cd)*{w}{i}end")
         ids.append(i)
     return pats, ids
+
+
+# kernel D's engines past the bench engine: name -> (pattern, Grey
+# tunables). "many_class" has 45 classes (two membership words a byte),
+# "p502" 502 positions, near the device's limit of 512.
+MANY_CLASS_NFA = (r".*[a-c]x[d-f]y[g-i]z[j-l]w[m-o]v[p-r]u[s-t]q0[1-2]1"
+                  r"[3-4]2[5-6]3[7-8]4[9A]5[B-C]6[D-E]7[F-G]8[H-I]9[J-K]A"
+                  r"[L-M]B[N-O]C[P-Q]D[R-S]E.{3}[T-U]")
+NFA_ENGINES = {
+    "many_class": (MANY_CLASS_NFA,
+                   {"max_dfa_states": 8, "allow_teddy": False}),
+    "p502": (r".*a.{500}b", {"max_dfa_states": 8}),
+}
+# one match of MANY_CLASS_NFA
+MANY_CLASS_PLANT = b"axdygzjwmvpusq01132537495B6D7F8H9JALBNCPDREzzzT"
+
+
+def plant_many_class(data, start: int, every: int):
+    """A copy of `data` (bytes or a uint8 array, of the same type) with
+    MANY_CLASS_PLANT at start, start + every, ... while it fits 64 bytes
+    before the end."""
+    out = np.frombuffer(data, np.uint8).copy() if isinstance(
+        data, (bytes, bytearray)) else data.copy()
+    p = np.frombuffer(MANY_CLASS_PLANT, np.uint8)
+    for off in range(start, len(out) - 64, every):
+        out[off:off + len(p)] = p
+    return out.tobytes() if isinstance(data, (bytes, bytearray)) else out
 
 
 def plant_region() -> np.ndarray:

@@ -97,6 +97,8 @@ def test_scan_on_card_equals_cpu_and_counts_launches(card):
 from hyperscan_tpu_torch.ops import dfa_kernel as DK  # noqa: E402
 from hyperscan_tpu_torch.ops import nfa_kernel as NK  # noqa: E402
 from hyperscan_tpu_torch.ops.teddy import flatten_blocks  # noqa: E402
+from hyperscan_tpu_torch.tools.benchdata import (  # noqa: E402
+    NFA_ENGINES, plant_many_class)
 
 ENGINE_ALPHA = np.frombuffer(b"aabxyz0123456789-cdefGET /!\x00\xff", np.uint8)
 
@@ -263,18 +265,37 @@ def test_dfa_modes_large_dfa_equal_plain(card, placement):
     assert int((a_p != 0).sum()) > 20
 
 
+# kernel D's cases: (pattern, block sizes)
+NFA_CASES = {
+    "eod": (r".*x.{8}(y|z)$", (300_001, 0, 77, 5000, 1 << 16, 1)),
+    "wide": (r".*a.{60}b", (300_001, 0, 77, 5000, 1 << 16, 1)),
+    "many_class": (NFA_ENGINES["many_class"][0],
+                   (300_001, 0, 77, 5000, 1 << 16, 1)),
+    "p502": (r".*a.{500}b", (300_001, 0, 77, 5000, 1 << 16, 1)),
+    "blocks_16k": (r".*a.{18}b", (64,) * 16_384),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pat", [r".*x.{8}(y|z)$", r".*a.{60}b"])
-def test_nfa_layered_kernel_equals_plain(card, pat):
+@pytest.mark.parametrize("case", list(NFA_CASES))
+def test_nfa_layered_kernel_equals_plain(card, case):
+    """Kernel D against its plain version, also past a cap below the
+    record total: EOD accepts, P > 48, 45 classes (two membership words
+    a byte), P = 502, and 16,384 blocks of 64 bytes (a block edge in
+    every other word)."""
+    pat, sizes = NFA_CASES[case]
     db = compile_patterns([pat], grey=Grey(max_dfa_states=8,
                                            allow_teddy=False))
     eng = db.engines[0]
     assert NK.nfa_device_eligible(eng)
-    blocks = _engine_blocks(6, (300_001, 0, 77, 5000, 1 << 16, 1))
+    blocks = _engine_blocks(6, sizes)
+    if case == "many_class":
+        for k in (0, 3, 4):
+            blocks[k] = plant_many_class(blocks[k], 100, 997)
     for k in (0, 2, 4):  # EOD accepts
         blocks[k] = blocks[k][:-10] + b"x\xff2345678z"
     corpus, starts, lens = flatten_blocks(blocks)
-    anch = np.asarray([1, 0, 1, 0, 1, 1], bool)
+    anch = np.resize(np.asarray([1, 0, 1, 0, 1, 1], bool), len(blocks))
     ct = torch.from_numpy(corpus).to(card)
     plan = NK.device_plan(eng, card)
     bs, be, ba, _ne = NK.block_bounds(starts, lens, anch, card)
@@ -290,10 +311,14 @@ def test_nfa_layered_kernel_equals_plain(card, pat):
     assert torch.equal(k_eod, p_eod)
     assert torch.equal(_sorted_rows(k_recs, k_tot, 2),
                        _sorted_rows(p_recs, p_tot, 2))
-    if "$" in pat:
+    if case == "eod":
         assert int((p_eod != 0).sum()) == 3
     else:
-        assert eng.num_positions > 48 and p_tot > 10
+        assert p_tot > 10
+    if case in ("wide", "p502"):
+        assert eng.num_positions > 48
+    if case == "many_class":
+        assert plan.K > 32
 
 
 @pytest.mark.cuda
@@ -366,6 +391,41 @@ def test_gate_and_rescan_kernels_equal_plain(card, n):
         _same_cells(pos_k, cnt_k, pos_a, cnt_a, capc)
     if n > 1000:
         assert int(cnt_k.sum()) > 100
+
+
+def _gate_case(M: int, device):
+    """Gate tables of depth M over 128 classes (byte b in class b % 128)
+    whose words are nonzero for about 128 x 0.006^(1/M) classes each, so
+    about 0.6% of random positions pass, and a random corpus of 3 cells
+    and 4,099 bytes."""
+    rng = np.random.default_rng(M)
+    b2c = torch.from_numpy((np.arange(256) % 128).astype(np.uint8))
+    live = rng.random((M, 128)) < 0.006 ** (1 / M)
+    words = rng.integers(0, 1 << 31, (M, 128)) | (1 << 30)
+    gcm = np.where(live, words, 0).astype(np.int32)
+    n = 3 * 65536 + 4099
+    corpus = rng.integers(0, 256, n).astype(np.uint8)
+    return (G.gate_tables(b2c.to(device), gcm),
+            torch.from_numpy(corpus).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", range(1, 9))
+def test_gate_kernel_any_depth_equals_plain(card, M):
+    """Kernel 5 at every suffix depth (its vectors split into 128-bit
+    parts and single words in every way), on random gate words sparse
+    enough that some rows stay unflagged, at a length that is neither a
+    multiple of 32 nor of a cell: flags and counts equal the plain
+    version's."""
+    gt, corpus = _gate_case(M, card)
+    n = corpus.numel()
+    T.reset_launches()
+    flags_k, k_k = G.gate_rows(corpus, gt)
+    assert T.LAUNCHES["teddy_gate"] == 1
+    flags_p, k_p = G.gate_rows_plain(corpus, gt)
+    assert torch.equal(flags_k, flags_p) and torch.equal(k_k, k_p)
+    flagged = int(k_p.sum())
+    assert 0 < flagged < n // 128
 
 
 @pytest.mark.cuda

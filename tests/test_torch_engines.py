@@ -29,6 +29,7 @@ from hyperscan_tpu_torch.grey import Grey as PortGrey
 from hyperscan_tpu_torch.ops import dfa_kernel as PDK
 from hyperscan_tpu_torch.ops import nfa_kernel as PNK
 from hyperscan_tpu_torch.ops.teddy import upload_blocks
+from hyperscan_tpu_torch.tools.benchdata import NFA_ENGINES, plant_many_class
 
 DOTALL = hs.HS_FLAG_DOTALL
 SOM = hs.HS_FLAG_SOM_LEFTMOST
@@ -47,6 +48,10 @@ ROUTES = {
                 dict(max_dfa_states=8, allow_teddy=False)),
     "wide_nfa": ([r".*a.{60}b"], [0], dict(max_dfa_states=8)),
 }
+# kernel D's other shapes, for the bit-NFA scan alone: 45 classes (two
+# membership words a byte) and P = 502 (16 carry words a thread)
+NFA_ROUTES = {f"{name}_nfa": ([pat], [0], grey)
+              for name, (pat, grey) in NFA_ENGINES.items()}
 PLANTS = [b"abcdef", b"abddddef", b"555-1212", b"GET /index ", b"12abc34",
           b"9zzzzzzzz8", b"axby!", b"dwcz!", b"a" + b"q" * 18 + b"b",
           b"x12345678y", b"a" + b"\x00" * 60 + b"b", b"\x00\xff"]
@@ -54,7 +59,7 @@ ALPHA = np.frombuffer(b"aabxyz0123456789-cdefGET /!axbycz\x00\xff", np.uint8)
 
 
 def _compile(route, grey_extra=None):
-    pats, flags, g = ROUTES[route]
+    pats, flags, g = ROUTES[route] if route in ROUTES else NFA_ROUTES[route]
     g = dict(g, host_scan_limit=0, **(grey_extra or {}))
     ref = ref_compile(pats, flags, list(range(len(pats))), grey=RefGrey(**g))
     port = port_compile(pats, flags, list(range(len(pats))),
@@ -206,7 +211,8 @@ def test_speculative_nfa_equals_reference():
 # --- (d) the layered bit-NFA -------------------------------------------------
 
 
-@pytest.mark.parametrize("route", ["acyclic_nfa", "eod_nfa", "wide_nfa"])
+@pytest.mark.parametrize("route", ["acyclic_nfa", "eod_nfa", "wide_nfa",
+                                   "many_class_nfa", "p502_nfa"])
 def test_nfa_scan_corpus_equals_reference(route, monkeypatch):
     ref, port = _compile(route)
     re_ = next(e for e in ref.engines if isinstance(e, RefNfa))
@@ -217,9 +223,14 @@ def test_nfa_scan_corpus_equals_reference(route, monkeypatch):
     monkeypatch.setattr(PNK, "_PLAIN_TILE_BUDGET",
                         256 * (plan.P + plan.K + 8))
     assert PNK._tile(plan) == 256
-    if route == "wide_nfa":
+    if route in ("wide_nfa", "p502_nfa"):
         assert pe.num_positions > 48
+    if route == "many_class_nfa":
+        assert plan.K > 32
     blocks = _blocks(5, sizes=(1700, 0, 1501, 1, 2600, 33))
+    if route == "many_class_nfa":
+        for k in (0, 2, 4):
+            blocks[k] = plant_many_class(blocks[k], 40, 331)
     # EOD accepts at the ends of three blocks
     for k in (0, 4, 5):
         blocks[k] = blocks[k][:-10] + b"x\xff2345678z"

@@ -1,4 +1,4 @@
-"""Times the port's filter-loop kernels and its DFA scans, for two
+"""Times the port's filter-loop kernels, its DFA scans and kernel D, for two
 checkouts of the port compared on one card.
 
 The kernels that share the Teddy filter loop (csrc/teddy_filter.cuh) at
@@ -26,14 +26,16 @@ so a parent checkout can be timed by the same script.
 Usage, on a machine with a CUDA card:
 
     python3 tools_torch_kernel_ab.py [--root DIR] [--db FILE] [--reps 10]
-                                     [--part all|literal|dfa]
+                                     [--part all|literal|dfa|nfa|engines]
 
 `--root` is the checkout whose `hyperscan_tpu_torch` is timed (this one by
 default; its kernels are built there); `--db` caches the serialized 10k
 database (made when missing), so runs over two checkouts compile it once;
 `--part literal` times only the Teddy kernels, `--part dfa` only the DFA
-scans. Prints one JSON line: the card's name and power limit, the build seconds,
-and each kernel's ms.
+scans, `--part nfa` only kernel D; `--part engines` (not in `all`) times
+the engine path end to end instead, as the checkout's chip_smoke.py runs
+it. Prints one JSON line: the card's name and power limit, the build
+seconds, and each kernel's ms (or each engine route's GB/s).
 """
 
 from __future__ import annotations
@@ -48,6 +50,19 @@ import time
 import numpy as np
 
 LARGE_DFA_K = (8, 9, 10)  # S x C = 3,072, 6,144, 12,288
+# kernel D's engines: name -> (pattern, Grey tunables); kept here, not
+# read from chip_smoke.py, which a parent checkout's copy may lack
+NFA_ENGINES = {
+    "bench": (r".*a.{18}b", {}),
+    "p62": (r".*a.{60}b", {"max_dfa_states": 8}),
+    "many_class": (r".*[a-c]x[d-f]y[g-i]z[j-l]w[m-o]v[p-r]u[s-t]q0[1-2]1"
+                   r"[3-4]2[5-6]3[7-8]4[9A]5[B-C]6[D-E]7[F-G]8[H-I]9[J-K]A"
+                   r"[L-M]B[N-O]C[P-Q]D[R-S]E.{3}[T-U]",
+                   {"max_dfa_states": 8, "allow_teddy": False}),
+    "p502": (r".*a.{500}b", {"max_dfa_states": 8}),
+}
+# one match of the 45-class engine, planted every 65,537 bytes
+MANY_CLASS_PLANT = b"axdygzjwmvpusq01132537495B6D7F8H9JALBNCPDREzzzT"
 
 
 def main(argv=None) -> int:
@@ -56,7 +71,8 @@ def main(argv=None) -> int:
         __file__)))
     ap.add_argument("--db", default=None)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--part", choices=("all", "literal", "dfa"),
+    ap.add_argument("--part", choices=("all", "literal", "dfa", "nfa",
+                                       "engines"),
                     default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -138,6 +154,9 @@ def main(argv=None) -> int:
                                                      use_classes=True))
         out["plane"] = ms(lambda: T.filter_plane(ct, ft, use_classes=True))
         out["gate"] = ms(lambda: G.gate_rows(ct, gt))
+        sct = T.corpus_tensor(gen_corpus(512 << 20, 1, "structured"), dev)
+        out["gate structured"] = ms(lambda: G.gate_rows(sct, gt))
+        del sct
         flags, _k = G.gate_rows(ct, gt)
         out["rescan"] = ms(lambda: G.rescan_rows(ct, ft, flags, 256))
         for s in (0, 1, 2, 3):
@@ -237,9 +256,57 @@ def main(argv=None) -> int:
             out[f"dfa_scan_batch {q} rows"] = ms(
                 lambda: D.dfa_scan_batch(*args_, d_t[:q], l_t[:q]))
 
-    total = literal() if args.part != "dfa" else None
-    if args.part != "literal":
+    def nfa():
+        """Kernel D over 256 MiB, one block and 16,384 blocks, each engine
+        held exact against the plain version before it is timed."""
+        from hyperscan_tpu_torch.ops import nfa_kernel as NK
+
+        ecorpus = CS.gen_engine_corpus(CS.ENGINE_BYTES, 5)
+        p = np.frombuffer(MANY_CLASS_PLANT, np.uint8)
+        for off in range(1000, len(ecorpus) - 64, 65_537):
+            ecorpus[off:off + len(p)] = p
+        corpus_t = torch.from_numpy(ecorpus).to(dev)
+        for name, (pat, grey) in NFA_ENGINES.items():
+            eng = compile_patterns([pat], [0], grey=Grey(**grey)).engines[0]
+            plan = NK.device_plan(eng, dev)
+            for shape in ("one_block", "blocks_16k"):
+                lens = [len(b) for b in CS.engine_blocks(ecorpus, shape)]
+                starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+                bs, be, ba, _ne = NK.block_bounds(
+                    starts, lens, np.ones(len(lens), bool), dev)
+                cap = 1 << 22
+                rk, tk, ek = NK.nfa_layered(corpus_t, plan, bs, be, ba, cap)
+                rp, tp, ep = NK.nfa_layered_plain(corpus_t, plan, bs, be, ba,
+                                                  cap)
+                k = int(tp)
+                same = int(tk) == k <= cap and torch.equal(ek, ep) and \
+                    torch.equal(*(r[:k].long()[torch.argsort(r[:k, 0])]
+                                  for r in (rk, rp)))
+                if not same:
+                    raise SystemExit(f"kernel D {name} {shape} != plain")
+                cap = max(1, k)
+                out[f"nfa_layered {name} {shape}"] = ms(
+                    lambda: NK.nfa_layered(corpus_t, plan, bs, be, ba, cap))
+                out[f"nfa_layered {name} {shape} records"] = k
+                del rk, rp
+
+    def engines():
+        """The engine path end to end, as the checkout's own chip_smoke.py
+        runs it (phase 3b): each route through scan_batch over 256 MiB as
+        one block and as 16,384 blocks, GB/s over the mean timed scan."""
+        ecorpus = CS.gen_engine_corpus(CS.ENGINE_BYTES, 5)
+        runs = CS.engine_path(ht, CS.engine_dbs(ht), ecorpus)
+        for (route, shape), (_n, _warm_s, times) in runs.items():
+            out[f"engine path {route} {shape} GB/s"] = \
+                CS.ENGINE_BYTES / (sum(times) / len(times)) / 1e9
+
+    total = literal() if args.part in ("all", "literal") else None
+    if args.part in ("all", "dfa"):
         dfa()
+    if args.part in ("all", "nfa"):
+        nfa()
+    if args.part == "engines":
+        engines()
     print(json.dumps({"root": root, "card": card, "build_s": build_s,
                       "candidates": total, "ms": out}), flush=True)
     return 0
