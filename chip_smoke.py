@@ -156,13 +156,20 @@ def nvidia_smi(query: str) -> str:
     return r.stdout.strip().splitlines()[0].strip()
 
 
+# a spin of the card (~10 ms at 1,980 MHz) that timed calls queue behind
+QUEUE_CYCLES = 20_000_000
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean milliseconds per call on the card (CUDA events, after one
-    warm-up call)."""
+    warm-up call). The calls are queued behind a spin of the card, so a
+    kernel shorter than its host-side launch is timed on the card, not at
+    the host's pace."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     e0.record()
     for _ in range(reps):
         fn()
@@ -686,6 +693,7 @@ def engine_kernel_times(torch, edbs, corpus, clock_hz) -> dict:
 FLOOD_BYTES = 4 * MB  # the flood database's corpus (every byte a candidate)
 FLOOD_MAIN_BYTES = MB // 4  # its scan on the main path (a match a byte)
 FORCED_TIMED = 2
+DENSE_PLANE = 0.05  # nonzero share of the extraction's dense plane
 
 
 def flood_db(ht):
@@ -731,11 +739,13 @@ def family_kernel_checks(torch, T, db, fdb) -> dict:
                     int((kk - kp).abs().max()))
             errs["gate"] = max(errs["gate"], e)
             check(e == 0, f"kernel 5 {name} != plain version")
-            pk, ck = G.rescan_rows(corpus_t, ft, fk, CHECK_CAPC)
             pp, cp = T.filter_compact_plain(corpus_t, ft, CHECK_CAPC,
                                             use_classes=True, row_flags=fp)
-            e = cell_err(torch, pk, ck, pp, cp, CHECK_CAPC)
-            errs["rescan"] = max(errs["rescan"], e)
+            for counts in (kk, None):  # as the gated family calls it
+                pk, ck = G.rescan_rows(corpus_t, ft, fk, CHECK_CAPC,
+                                       row_counts=counts)
+                e = cell_err(torch, pk, ck, pp, cp, CHECK_CAPC)
+                errs["rescan"] = max(errs["rescan"], e)
             check(e == 0, f"kernel 6 {name} != plain version")
             msg.append(f"gate K {int(kk.sum())} rows, rescan candidates "
                        f"{int(ck.sum())}")
@@ -862,12 +872,57 @@ def forced_families(torch, ht, T, db, runs, hosts) -> dict:
     return out
 
 
-def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
+def lit_bound(clock_hz):
+    """The bound of a literal-path kernel on this card: the larger of its
+    bytes at HBM_BYTES_PER_S and of its shared-memory lookups and integer
+    operations, the two pipes side by side."""
+    def bound(n_bytes, lookups, int_ops=0):
+        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_o = max(lookups / (SMEM_LOOKUPS_PER_CLK * clock_hz),
+                  int_ops / (INT_OPS_PER_CLK * clock_hz)) * 1e3
+        return {"bound_ms": max(t_b, t_o),
+                "bound_by": "operations" if t_o > t_b else "bytes"}
+    return bound
+
+
+def rescan_times(torch, T, G, corpus_t, ft, flags, kc, capc, bound):
+    """Kernel 6 at one corpus's gate flags and row counts `kc`: its error
+    against the plain version (with the row counts, as the gated family
+    calls it, and without), and its ms with and without the counts,
+    plain ms and bound. The bound's bytes are what the call with the
+    counts must move: the counts, the flags of the cells with a flagged
+    row, those rows, and each cell's count and positions below capc; its
+    operations the M x W table words of each byte of a flagged row."""
+    pp, cp = T.filter_compact_plain(corpus_t, ft, capc, use_classes=True,
+                                    row_flags=flags)
+    err = 0
+    for counts in (kc, None):
+        pk, ck = G.rescan_rows(corpus_t, ft, flags, capc, row_counts=counts)
+        err = max(err, cell_err(torch, pk, ck, pp, cp, capc))
+    del pk, ck, pp
+    n_cells = kc.numel()
+    k_rows = int(kc.sum())
+    moved = (2 * n_cells * 4 + int((kc > 0).sum()) * (T.CELL // T.ROW)
+             + k_rows * T.ROW + int(cp.clamp(max=capc).sum()) * 4)
+    return err, dict(
+        ms=cuda_ms(torch, lambda: G.rescan_rows(corpus_t, ft, flags, capc,
+                                                row_counts=kc), 10),
+        ms_without_counts=cuda_ms(torch, lambda: G.rescan_rows(
+            corpus_t, ft, flags, capc), 10),
+        plain_ms=cuda_ms(torch, lambda: T.filter_compact_plain(
+            corpus_t, ft, capc, use_classes=True, row_flags=flags), 1),
+        library_ms=None, capc=capc, rows=k_rows,
+        candidates=int(cp.sum()), candidates_max_cell=int(cp.max()),
+        **bound(moved, k_rows * T.ROW * ft.M * ft.W))
+
+
+def family_kernel_times(torch, T, db, corpus, clock_hz, dense) -> dict:
     """Phase 4c: kernels 5, 6, 4 and 3 at 512 MiB, the main path's shapes
-    (the rescan at the learned gated capc): each held against its plain
-    version on the same inputs, exact (the errors under "err"), then
-    CUDA-event ms, bound, plain-version ms and, for the extraction,
-    torch.nonzero's ms."""
+    (the rescan at the learned gated capc, with the gate's row counts):
+    each held against its plain version on the same inputs, exact (the
+    errors under "err"), then CUDA-event ms, bound, plain-version ms and,
+    for the extraction, torch.nonzero's ms; with `dense`, the extraction
+    over a plane with DENSE_PLANE of its bytes nonzero too."""
     from hyperscan_tpu_torch.ops import extract as X
     from hyperscan_tpu_torch.ops import teddy_families as F
     from hyperscan_tpu_torch.ops import teddy_gate as G
@@ -881,16 +936,7 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
     n = corpus_t.numel()
     n_cells = T._n_cells(n)
     M, W = ft.M, ft.W
-    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
-
-    def bound(n_bytes, lookups, int_ops=0):
-        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-        # the shared-memory and integer pipes run side by side
-        t_o = max(lookups / lookups_per_s,
-                  int_ops / (INT_OPS_PER_CLK * clock_hz)) * 1e3
-        return {"bound_ms": max(t_b, t_o),
-                "bound_by": "operations" if t_o > t_b else "bytes"}
-
+    bound = lit_bound(clock_hz)
     out, err = {}, {}
     flags, kc = G.gate_rows(corpus_t, gt)
     fp, kp = G.gate_rows_plain(corpus_t, gt)
@@ -903,21 +949,10 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
         library_ms=None, rows=k_rows,
         **bound(n + n_cells * (T.CELL // T.ROW + 4), n * M))
     capc = F._caps_for(lit, 1 << 14, "gated")[1]
-    pk, ck = G.rescan_rows(corpus_t, ft, flags, capc)
-    pp, cp = T.filter_compact_plain(corpus_t, ft, capc, use_classes=True,
-                                    row_flags=fp)
-    err["rescan"] = cell_err(torch, pk, ck, pp, cp, capc)
-    check(int(cp.max()) <= capc, "learned gated capc below the hottest cell")
-    out["rescan"] = dict(
-        ms=cuda_ms(torch, lambda: G.rescan_rows(corpus_t, ft, flags, capc),
-                   10),
-        plain_ms=cuda_ms(torch, lambda: T.filter_compact_plain(
-            corpus_t, ft, capc, use_classes=True, row_flags=flags), 1),
-        library_ms=None, capc=capc, candidates=int(cp.sum()),
-        **bound(k_rows * T.ROW + n_cells * (T.CELL // T.ROW)
-                + n_cells * (capc + 1) * 4,
-                k_rows * T.ROW * M * W))
-    del pk, ck, pp, cp
+    err["rescan"], out["rescan"] = rescan_times(torch, T, G, corpus_t, ft,
+                                                flags, kc, capc, bound)
+    check(out["rescan"]["candidates_max_cell"] <= capc,
+          "learned gated capc below the hottest cell")
     ok_ = K.filter_kconfirm(corpus_t, ft, kt, use_classes=True)
     op_ = K.filter_kconfirm_plain(corpus_t, ft, kt, use_classes=True)
     err["kconfirm"] = max(
@@ -949,18 +984,33 @@ def family_kernel_times(torch, T, db, corpus, clock_hz) -> dict:
             corpus_t, ft, use_classes=True), 1),
         library_ms=None, candidates=total,
         **bound(n + plane.numel(), n * M * W))
-    cap1 = T._p2(max(total, 1))
-    mk, qk = X.plane_extract(plane, n, cap1)
-    mp, qp = X.plane_extract_plain(plane, n, cap1)
-    err["extract"] = max(int((mk - mp).abs().max()),
-                         int((qk - qp).abs().max()))
-    out["extract"] = dict(
-        ms=cuda_ms(torch, lambda: X.plane_extract(plane, n, cap1), 10),
-        plain_ms=cuda_ms(torch, lambda: X.plane_extract_plain(
-            plane, n, cap1), 1),
-        library_ms=cuda_ms(torch, lambda: torch.nonzero(plane), 5),
-        cap1=cap1,
-        **bound(plane.numel() + total * 4 + 16, 0))
+
+    def extract_times(plane, n_valid):
+        # the output: cap1 positions (-1 past the total) and meta
+        total = int(plane.sum())
+        cap1 = T._p2(max(total, 1))
+        mk, qk = X.plane_extract(plane, n_valid, cap1)
+        mp, qp = X.plane_extract_plain(plane, n_valid, cap1)
+        e = max(int((mk - mp).abs().max()), int((qk - qp).abs().max()))
+        return e, dict(
+            ms=cuda_ms(torch, lambda: X.plane_extract(plane, n_valid, cap1),
+                       10),
+            plain_ms=cuda_ms(torch, lambda: X.plane_extract_plain(
+                plane, n_valid, cap1), 1),
+            library_ms=cuda_ms(torch, lambda: torch.nonzero(plane), 5),
+            cap1=cap1, candidates=total,
+            **bound(plane.numel() + cap1 * 4 + 16, 0))
+
+    err["extract"], out["extract"] = extract_times(plane, n)
+    if dense:
+        # a plane with DENSE_PLANE of its bytes nonzero, made on the card
+        # from a seed: where the dense family is chosen, candidates are
+        # dense
+        g = torch.Generator(device=DEVICE).manual_seed(9)
+        plane = (torch.rand(plane.numel(), generator=g, device=DEVICE)
+                 < DENSE_PLANE).to(torch.uint8)
+        e, out["extract_dense"] = extract_times(plane, n)
+        err["extract"] = max(err["extract"], e)
     for k, e in err.items():
         check(e == 0, f"kernel {k} at 512 MiB != plain version")
     out["err"] = err
@@ -1845,14 +1895,15 @@ def _arr_err(a, b) -> int:
     return int(np.abs(a - b).max()) if a.size else 0
 
 
-def streamset_round_checks(torch, T, lit, h) -> dict:
+def streamset_round_checks(torch, T, lit, h, clock_hz):
     """The kernels of the family that ran the last timed StreamSet round,
     on that round's own extent tensor (16,384 stitched extents) at the
     round's capacities, each against its plain version on the same bytes,
     exact; the hash confirm's pair total also equals the round's own (the
     same function of the same inputs). Returns the max abs
     error of each kernel, keyed as phase 2c's (and "compact", "confirm"
-    for kernels A and B)."""
+    for kernels A and B), and, for the gated family, the rescan's times
+    there (`rescan_times`; else {})."""
     from hyperscan_tpu_torch.ops import extract as X
     from hyperscan_tpu_torch.ops import teddy_gate as G
     from hyperscan_tpu_torch.ops import teddy_kconfirm as K
@@ -1861,7 +1912,7 @@ def streamset_round_checks(torch, T, lit, h) -> dict:
     n = corpus.numel()
     ft, ct = T.device_tables(lit, DEVICE)
     classes = ft.cmasks is not None
-    errs = {}
+    errs, times = {}, {}
     if h.family == "kconfirm":
         kt = K.confirm_planes(lit, DEVICE)
         ok_ = K.filter_kconfirm(corpus, ft, kt, use_classes=classes)
@@ -1873,7 +1924,7 @@ def streamset_round_checks(torch, T, lit, h) -> dict:
         check(errs["kconfirm"] == 0, "StreamSet round: kernel 4 != plain")
         check(int(h.meta[2]) == int(op_[1].sum()),
               "StreamSet round: its match total != the plain version's")
-        return errs
+        return errs, times
     if h.family == "dense":
         plane_k = T.filter_plane(corpus, ft, use_classes=classes)
         plane_p = T.filter_plane_plain(corpus, ft, use_classes=classes)
@@ -1891,10 +1942,9 @@ def streamset_round_checks(torch, T, lit, h) -> dict:
             fp, kp = G.gate_rows_plain(corpus, gt)
             errs["gate"] = max(int((fk.int() - fp.int()).abs().max()),
                                int((kk - kp).abs().max()))
-            pk, ck = G.rescan_rows(corpus, ft, fk, capc)
-            pp, cp = T.filter_compact_plain(corpus, ft, capc,
-                                            use_classes=True, row_flags=fp)
-            errs["rescan"] = cell_err(torch, pk, ck, pp, cp, capc)
+            errs["rescan"], times = rescan_times(
+                torch, T, G, corpus, ft, fk, kk, capc, lit_bound(clock_hz))
+            pk, ck = G.rescan_rows(corpus, ft, fk, capc, row_counts=kk)
         else:
             (pk, ck), errs["compact"] = compare_filter(torch, T, corpus, ft,
                                                        capc, classes)
@@ -1910,7 +1960,7 @@ def streamset_round_checks(torch, T, lit, h) -> dict:
           f"{int(h.meta[2])} != the plain version's {int(tot)}")
     log(f"StreamSet round kernels ({h.family}) on its {n} B of extents: "
         f"{total} candidates, {int(tot)} hash-matched pairs: exact")
-    return errs
+    return errs, times
 
 
 def stream_dfa_checks(torch, st) -> int:
@@ -2290,8 +2340,11 @@ def main() -> int:
           "streaming path")
     sn = streaming_checks(ht, db, edbs, st)
     # the path's kernels at the path's inputs, against their plain versions
-    rerr = streamset_round_checks(torch, T, st["sdb"].lit,
-                                  st["passes"][-1][4].dev_handle)
+    rerr, rtimes = streamset_round_checks(
+        torch, T, st["sdb"].lit, st["passes"][-1][4].dev_handle, clock_hz)
+    if rtimes:
+        log(f"StreamSet round rescan times [{card}]: "
+            + json.dumps(rtimes, sort_keys=True))
     err_c = max(err_c, stream_dfa_checks(torch, st))
     err_a = max(err_a, rerr.pop("compact", 0))
     err_b = max(err_b, rerr.pop("confirm"))
@@ -2364,7 +2417,8 @@ def main() -> int:
     # each against its plain version there too
     ft_ = {}
     for kind, (corpus, _out, _w, _t) in runs.items():
-        ft_[kind] = family_kernel_times(torch, T, db, corpus, clock_hz)
+        ft_[kind] = family_kernel_times(torch, T, db, corpus, clock_hz,
+                                        dense=kind == "iid")
         log(f"family kernel times {kind} [{card}]: "
             + json.dumps(ft_[kind], sort_keys=True))
         for k, e in ft_[kind]["err"].items():
@@ -2446,7 +2500,7 @@ def main() -> int:
                                                    "blocks_16k")}},
         entry("teddy_gate", "teddy_gate.cu",
               "hyperscan_tpu/ops/teddy.py:1381", ferr["gate"], fr["gate"]),
-        entry("teddy_rescan_rows", "teddy_filter_compact.cu",
+        entry("teddy_rescan_rows", "teddy_rescan_rows.cu",
               "hyperscan_tpu/ops/teddy.py:1424", ferr["rescan"],
               fr["rescan"]),
         entry("teddy_kconfirm", "teddy_kconfirm.cu",
@@ -2458,6 +2512,16 @@ def main() -> int:
               "hyperscan_tpu/ops/teddy.py:793", ferr["extract"],
               fr["extract"]),
     ]
+    # the rescan over the structured corpus and the StreamSet round, the
+    # extraction over the structured and the dense plane
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    extra = {"teddy_rescan_rows": {"structured": ft_["structured"]["rescan"],
+                                   "streamset_round": rtimes},
+             "plane_extract": {"structured": ft_["structured"]["extract"],
+                               "dense": fr["extract_dense"]}}
+    for k in kernels:
+        for where, t in extra.get(k["name"], {}).items():
+            k[where] = {key: t[key] for key in keys if key in t}
     for name, replaces, mode in (
             ("teddy_words_count", "hyperscan_tpu/parallel/sharded.py:237",
              "count"),

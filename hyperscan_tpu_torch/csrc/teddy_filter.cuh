@@ -2,8 +2,8 @@
 // one thread, the filter tables in shared memory, the candidate test over a
 // thread's 16 bytes, and the resident grid the kernels run on.
 //
-// Included by teddy_filter_compact.cu (compaction, plane and survivor-row
-// modes), teddy_gate.cu (the single-word gate), teddy_words.cu (the
+// Included by teddy_filter_compact.cu (compaction and plane modes),
+// teddy_rescan_rows.cu (the filter over the gate's rows), teddy_gate.cu (the single-word gate), teddy_words.cu (the
 // standalone filter) and teddy_kconfirm.cu (the filter with the hash confirm
 // inside). See teddy_filter_compact.cu for the filter's definition.
 //

@@ -1,5 +1,5 @@
 // Teddy multi-literal filter with per-cell candidate compaction (sm_90a), in
-// three modes of one kernel.
+// two modes of one kernel.
 //
 // Replaces the Pallas TPU kernels _make_kernel_fused_classes (class tables)
 // and _make_kernel_fused (byte tables), hyperscan_tpu/ops/teddy.py:572, :682:
@@ -7,9 +7,9 @@
 //   the pallas_call at hyperscan_tpu/ops/teddy.py:1103 (ungated compact
 //   family);
 // - plane mode: the uint8 candidacy plane of the pallas_call at :1116 (dense
-//   family, capc = 0), which plane_extract.cu then extracts;
-// - survivor-row mode: the full class filter over the rows that the gate
-//   (teddy_gate.cu) flagged, the pallas_call at :1424 (gated family, stage 2).
+//   family, capc = 0), which plane_extract.cu then extracts.
+// The gated family's stage 2, the same filter over the rows that the gate
+// flagged (the pallas_call at :1424), is teddy_rescan_rows.cu.
 //
 // What it computes. For every corpus position p < n,
 //   cand(p) = OR_w AND_{m<M} tab[m][w][key(p - m)] != 0,
@@ -17,19 +17,14 @@
 // 256 entries), with a zero byte for q < 0. Compact mode: for every 64 KiB
 // cell, the exact number of candidates and the first `capc` candidate
 // positions in ascending order; the count stays exact past capc (the caller
-// reads it to size the next dispatch). Survivor-row mode: the same, counting
-// only candidates inside the cell's flagged 128-byte rows; because the gate
-// is a superset of the filter, this equals compact mode's output. Plane
-// mode: plane[p] = cand(p) as one byte, for p below the plane's length
+// reads it to size the next dispatch). Plane mode: plane[p] = cand(p) as one byte, for p below the plane's length
 // (zero at and past n).
 //
 // What bounds it. Each corpus byte is read once (n bytes at 3.35 TB/s), but
 // each byte costs 1 + M*W shared-memory words with class tables (M*W with
 // byte tables): at M=5, W=4 that is 21 words a byte against 132 SMs x 32
 // words a clock, so the table reads, not device memory, bound compact and
-// plane mode. Survivor-row mode does that work only for the flagged rows
-// (a few percent of the corpus, or none), so there its launch and the
-// 512-byte flag read of each cell bound it.
+// plane mode.
 //
 // Design. The loop of teddy_filter.cuh: the tables in shared memory in the
 // kernels' [M][K][Wp] layout, replicated so that the lanes of a warp read
@@ -39,13 +34,7 @@
 // bytes with one vector load and takes the up to 7 bytes of look-back it
 // needs from its left neighbour's registers by a warp shuffle. Positions are
 // ranked by a popcount, a warp shuffle scan and a shared-memory scan across
-// warps, so they come out ascending with no sort. In survivor-row mode the
-// block first lists its flagged rows in shared memory (a block scan over the
-// 512 flags), then gives each listed row to 8 threads, 32 rows a step: a
-// row's first thread reloads the 16 bytes before the row, so a row's
-// look-back is read from the flat corpus directly (the reference's packing
-// of (predecessor, row) pairs is a TPU layout, not needed here). None of the
-// TPU's layouts (128-lane rows, halo row, rank selection by matmul) are
+// warps, so they come out ascending with no sort. None of the TPU's layouts (128-lane rows, halo row, rank selection by matmul) are
 // needed.
 
 #include "teddy_filter.cuh"
@@ -54,7 +43,7 @@ namespace {
 
 using namespace teddy;
 
-enum Mode { kCompact = 0, kPlane = 1, kRows = 2 };
+enum Mode { kCompact = 0, kPlane = 1 };
 
 template <int M, bool kClasses, int V, int kMode>
 __global__ void __launch_bounds__(kThreads)
@@ -63,12 +52,11 @@ filter_kernel(const uint8_t* __restrict__ corpus, long long n,
               const uint32_t* __restrict__ tabs, int H, int R, int capc,
               int32_t* __restrict__ out_pos, int32_t* __restrict__ counts,
               uint8_t* __restrict__ plane, long long plane_len,
-              const uint8_t* __restrict__ row_flags, int n_cells) {
+              int n_cells) {
   constexpr int kTab = kClasses ? 128 : 256;
   extern __shared__ __align__(16) uint32_t s_tab[];  // [M][H][kTab][R][V]
   __shared__ uint8_t s_b2c[256];
   __shared__ int s_warp[kWarps];
-  __shared__ int16_t s_rows[kMode == kRows ? kRowsPerCell : 1];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   stage_tables<V>(s_tab, tabs, M, kTab, H, R);
@@ -79,39 +67,12 @@ filter_kernel(const uint8_t* __restrict__ corpus, long long n,
     const long long cell0 = (long long)cell * kCell;
     int32_t* cell_out = out_pos + (long long)cell * capc;
     int running = 0;  // candidates of this cell before the current step
-    int n_steps = kSteps;
-    int n_rows = 0;
-    if (kMode == kRows) {
-      // list the flagged rows of this cell, ascending (the scan's barriers
-      // also keep the previous cell's readers of s_rows ahead)
-      const uint8_t* f = row_flags + (long long)cell * kRowsPerCell;
-      const int f0 = f[2 * tid] != 0;
-      const int f1 = f[2 * tid + 1] != 0;
-      const int off = block_scan(f0 + f1, s_warp, n_rows);
-      if (f0) s_rows[off] = int16_t(2 * tid);
-      if (f1) s_rows[off + f0] = int16_t(2 * tid + 1);
-      __syncthreads();
-      n_steps = (n_rows + kThreads / 8 - 1) / (kThreads / 8);
-    }
-    for (int step = 0; step < n_steps; ++step) {
-      long long p0;
-      bool reload;
-      if (kMode == kRows) {
-        const int slot = step * (kThreads / 8) + (tid >> 3);
-        // an idle thread sits at n rounded up to 16 (aligned loads): no
-        // byte below n, so no candidate
-        p0 = slot < n_rows ? cell0 + (long long)s_rows[slot] * kRowBytes +
-                                 (tid & 7) * 16
-                           : (n + 15) & ~15ll;
-        reload = (tid & 7) == 0;
-      } else {
-        const long long base = cell0 + (long long)step * kStep;
-        if (base >= n) break;  // uniform across the block
-        p0 = base + tid * kChunk;
-        reload = lane == 0;
-      }
+    for (int step = 0; step < kSteps; ++step) {
+      const long long base = cell0 + (long long)step * kStep;
+      if (base >= n) break;  // uniform across the block
+      const long long p0 = base + tid * kChunk;
       uint32_t win[6];
-      load_window(corpus, n, p0, reload, win);
+      load_window(corpus, n, p0, lane == 0, win);
       uint32_t bits =
           cand_bits<M, kClasses, V>(win, s_b2c, s_tab, H, R, p0, n);
       if (kMode == kPlane) {
@@ -147,8 +108,7 @@ template <int M, bool kClasses, int V, int kMode>
 cudaError_t launch(const uint8_t* corpus, long long n, const uint8_t* b2c,
                    const uint32_t* tabs, int Wp, int capc, int32_t* out_pos,
                    int32_t* counts, uint8_t* plane, long long plane_len,
-                   const uint8_t* row_flags, int n_cells,
-                   cudaStream_t stream) {
+                   int n_cells, cudaStream_t stream) {
   constexpr int kTab = kClasses ? 128 : 256;
   const int R = table_copies(M, kTab, Wp, V);
   const size_t smem = table_bytes(M, kTab, Wp, R);
@@ -158,7 +118,7 @@ cudaError_t launch(const uint8_t* corpus, long long n, const uint8_t* b2c,
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, smem, stream>>>(corpus, n, b2c, tabs, Wp / V, R,
                                            capc, out_pos, counts, plane,
-                                           plane_len, row_flags, n_cells);
+                                           plane_len, n_cells);
   return cudaGetLastError();
 }
 
@@ -166,14 +126,14 @@ template <int M, bool kClasses, int kMode>
 cudaError_t launch_v(const uint8_t* c, long long n, const uint8_t* b,
                      const uint32_t* t, int Wp, int capc, int32_t* o,
                      int32_t* k, uint8_t* pl, long long plane_len,
-                     const uint8_t* rf, int n_cells, cudaStream_t s) {
+                     int n_cells, cudaStream_t s) {
   switch (vector_width(Wp)) {
     case 1:
       return launch<M, kClasses, 1, kMode>(c, n, b, t, Wp, capc, o, k, pl,
-                                           plane_len, rf, n_cells, s);
+                                           plane_len, n_cells, s);
     case 4:
       return launch<M, kClasses, 4, kMode>(c, n, b, t, Wp, capc, o, k, pl,
-                                           plane_len, rf, n_cells, s);
+                                           plane_len, n_cells, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -183,26 +143,22 @@ template <int kMode>
 int dispatch(const void* corpus, long long n, const void* b2c,
              const void* tabs, int M, int Wp, int classes, int capc,
              void* out_pos, void* counts, void* plane, long long plane_len,
-             const void* row_flags, int n_cells, void* stream) {
+             int n_cells, void* stream) {
   const auto* c = static_cast<const uint8_t*>(corpus);
   const auto* b = static_cast<const uint8_t*>(b2c);
   const auto* t = static_cast<const uint32_t*>(tabs);
   auto* o = static_cast<int32_t*>(out_pos);
   auto* k = static_cast<int32_t*>(counts);
   auto* pl = static_cast<uint8_t*>(plane);
-  const auto* rf = static_cast<const uint8_t*>(row_flags);
   auto s = static_cast<cudaStream_t>(stream);
-  // survivor-row mode runs on class tables only (the gated family's)
-  if (kMode == kRows && !classes) return int(cudaErrorInvalidValue);
-#define HS_CASE(MM)                                                           \
-  case MM:                                                                    \
-    return int(classes ? launch_v<MM, true, kMode>(c, n, b, t, Wp, capc, o,   \
-                                                   k, pl, plane_len, rf,      \
-                                                   n_cells, s)                \
-                       : launch_v<MM, false, (kMode == kRows ? kCompact       \
-                                                             : kMode)>(       \
-                             c, n, b, t, Wp, capc, o, k, pl, plane_len, rf,   \
-                             n_cells, s));
+#define HS_CASE(MM)                                                          \
+  case MM:                                                                   \
+    return int(classes ? launch_v<MM, true, kMode>(c, n, b, t, Wp, capc, o,  \
+                                                   k, pl, plane_len,         \
+                                                   n_cells, s)               \
+                       : launch_v<MM, false, kMode>(c, n, b, t, Wp, capc, o, \
+                                                    k, pl, plane_len,        \
+                                                    n_cells, s));
   switch (M) {
     HS_CASE(1)
     HS_CASE(2)
@@ -227,8 +183,7 @@ extern "C" int hs_teddy_filter_compact(const void* corpus, long long n,
                                        void* out_pos, void* counts,
                                        int n_cells, void* stream) {
   return dispatch<kCompact>(corpus, n, b2c, tabs, M, Wp, classes, capc,
-                            out_pos, counts, nullptr, 0, nullptr, n_cells,
-                            stream);
+                            out_pos, counts, nullptr, 0, n_cells, stream);
 }
 
 extern "C" int hs_teddy_filter_plane(const void* corpus, long long n,
@@ -237,17 +192,7 @@ extern "C" int hs_teddy_filter_plane(const void* corpus, long long n,
                                      long long plane_len, int n_cells,
                                      void* stream) {
   return dispatch<kPlane>(corpus, n, b2c, tabs, M, Wp, classes, 0, nullptr,
-                          nullptr, plane, plane_len, nullptr, n_cells,
-                          stream);
-}
-
-extern "C" int hs_teddy_rescan_rows(const void* corpus, long long n,
-                                    const void* b2c, const void* tabs, int M,
-                                    int Wp, int classes, int capc,
-                                    const void* row_flags, void* out_pos,
-                                    void* counts, int n_cells, void* stream) {
-  return dispatch<kRows>(corpus, n, b2c, tabs, M, Wp, classes, capc, out_pos,
-                         counts, nullptr, 0, row_flags, n_cells, stream);
+                          nullptr, plane, plane_len, n_cells, stream);
 }
 
 extern "C" const char* hs_teddy_filter_compact_error(int code) {

@@ -1,13 +1,15 @@
-"""Two-level extraction of a candidacy plane's nonzero positions on a
+"""One-pass extraction of a candidacy plane's nonzero positions on a
 torch device: the dense family's candidate list.
 
 Reference counterpart: `sparse_extract` (hyperscan_tpu/ops/teddy.py:793)
 as the dense family calls it (:1127, `nz=` the plane, chunk
-EXTRACT_CHUNK = 256). Kernel: `csrc/plane_extract.cu` (two passes: chunk
-counts, then the scatter of ranks below cap1, with a plain torch cumsum
-over the chunk counts between them). The reference gathered the hit
-chunks at a learned chunk capacity; here no chunk capacity exists, so
-the extraction never clamps.
+EXTRACT_CHUNK = 256). Kernel: `csrc/plane_extract.cu` (one launch that
+reads the plane once: a block counts and ranks a 64 KiB range while a
+decoupled look-back learns the range's first rank, then writes its
+positions below cap1; the last ranges write the -1s and the metadata;
+one memset before it clears the look-back's status words). The
+reference gathered the hit chunks at a learned chunk capacity; here no
+chunk capacity exists, so the extraction never clamps.
 """
 
 from __future__ import annotations
@@ -68,10 +70,10 @@ def _lib():
     lib = library("plane_extract")
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hs_plane_chunk_counts.restype = ci
-        lib.hs_plane_chunk_counts.argtypes = [vp, cll, cll, vp, vp]
-        lib.hs_plane_scatter.restype = ci
-        lib.hs_plane_scatter.argtypes = [vp, cll, vp, vp, ci, vp, vp]
+        lib.hs_plane_extract.restype = ci
+        lib.hs_plane_extract.argtypes = [vp, cll, cll, ci, vp, vp]
+        lib.hs_plane_extract_buffer_bytes.restype = cll
+        lib.hs_plane_extract_buffer_bytes.argtypes = [cll, ci]
         lib.hs_plane_extract_error.restype = ctypes.c_char_p
         lib.hs_plane_extract_error.argtypes = [ci]
         lib._typed = True
@@ -85,28 +87,25 @@ def plane_extract(plane: torch.Tensor, n_valid: int, cap1: int):
     n_valid : chunks of 256 bytes at or past n_valid are not counted
     Returns (meta int64 [2] = (total nonzero bytes in the counted chunks,
     number of counted chunks holding one), positions int32 [cap1],
-    ascending, -1 past min(total, cap1)). Both passes of the kernel are
-    one launch in `LAUNCHES["plane_extract"]`."""
+    ascending, -1 past min(total, cap1)). On the card both are views of
+    one buffer that the kernel's memset and launch fill (one launch in
+    `LAUNCHES["plane_extract"]`)."""
     if plane.device.type == "cpu":
         return plane_extract_plain(plane, n_valid, cap1)
     _check(plane, cap1)
     if plane.device.type != "cuda":
         raise ValueError(f"unsupported device {plane.device}")
+    if plane.data_ptr() % 16:
+        raise ValueError("plane must be 16-byte aligned (vector loads)")
     lib = _lib()
-    n_chunks = plane.numel() // EXTRACT_CHUNK
+    n = plane.numel()
+    buf = torch.empty(lib.hs_plane_extract_buffer_bytes(n, cap1),
+                      dtype=torch.uint8, device=plane.device)
     stream = torch.cuda.current_stream(plane.device).cuda_stream
-    counts = torch.empty(n_chunks, dtype=torch.int32, device=plane.device)
-    rc = lib.hs_plane_chunk_counts(plane.data_ptr(), n_chunks, n_valid,
-                                   counts.data_ptr(), stream)
-    if rc:
-        raise RuntimeError("plane_extract launch failed: "
-                           + lib.hs_plane_extract_error(rc).decode())
-    meta, off = _meta(counts, n_chunks)
-    pos = torch.full((cap1,), -1, dtype=torch.int32, device=plane.device)
-    rc = lib.hs_plane_scatter(plane.data_ptr(), n_chunks, counts.data_ptr(),
-                              off.data_ptr(), cap1, pos.data_ptr(), stream)
+    rc = lib.hs_plane_extract(plane.data_ptr(), n, max(0, n_valid), cap1,
+                              buf.data_ptr(), stream)
     if rc:
         raise RuntimeError("plane_extract launch failed: "
                            + lib.hs_plane_extract_error(rc).decode())
     LAUNCHES["plane_extract"] += 1
-    return meta, pos
+    return buf[-16:].view(torch.int64), buf[:cap1 * 4].view(torch.int32)

@@ -13,9 +13,10 @@ where key(q) is the byte at q (byte tables) or its class under the
 byte->class remap (class tables, `_class_split`), with a zero byte before
 offset 0. Kernel A (`filter_compact`) emits per 64 KiB cell the exact
 candidate count and the first `capc` positions; its plane mode
-(`filter_plane`) writes a candidacy plane instead, and its survivor-row
-mode is `teddy_gate.rescan_rows`. Kernel B (`hash_confirm`) probes each
-candidate's masked 8-byte tail against the open-addressed tables of
+(`filter_plane`) writes a candidacy plane instead; the same filter over
+the gate's flagged rows is `teddy_gate.rescan_rows` (its own kernel).
+Kernel B (`hash_confirm`) probes each candidate's masked 8-byte tail
+against the open-addressed tables of
 `runtime.lit_runtime.confirm_device_tables` and emits (class + 1, pos)
 pairs.
 
@@ -283,7 +284,7 @@ def filter_compact_plain(corpus_u8: torch.Tensor, tables: FilterTables,
                          capc: int, *, use_classes: bool,
                          row_flags: Optional[torch.Tensor] = None):
     """Plain PyTorch version of kernel A (same contract as
-    `filter_compact`; with `row_flags`, of its survivor-row mode
+    `filter_compact`; with `row_flags`, of the survivor rescan
     `teddy_gate.rescan_rows`: only candidates in flagged 128-byte rows
     count); works chunk by chunk so its memory stays bounded at any
     corpus size. Slots past a cell's count hold 0."""
@@ -325,9 +326,6 @@ def _filter_lib():
         lib.hs_teddy_filter_plane.restype = ci
         lib.hs_teddy_filter_plane.argtypes = [
             vp, cll, vp, vp, ci, ci, ci, vp, cll, ci, vp]
-        lib.hs_teddy_rescan_rows.restype = ci
-        lib.hs_teddy_rescan_rows.argtypes = [
-            vp, cll, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, vp]
         lib.hs_teddy_filter_compact_error.restype = ctypes.c_char_p
         lib.hs_teddy_filter_compact_error.argtypes = [ci]
         lib._typed = True

@@ -223,7 +223,8 @@ def confirm_start(corpus_u8: torch.Tensor, lit, n_valid: int,
         if family == "gated":
             caps = _caps_for(lit, capacity, "gated")
             flags, k_cells = gate_rows(corpus, device_gate_table(lit, dev))
-            pos_c, counts = rescan_rows(corpus, ft, flags, caps[1])
+            pos_c, counts = rescan_rows(corpus, ft, flags, caps[1],
+                                        row_counts=k_cells)
             extra = [k_cells.long().sum().reshape(1)]
         else:
             caps = _caps_for(lit, capacity)

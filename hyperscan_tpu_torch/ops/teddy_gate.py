@@ -5,13 +5,13 @@ Reference counterpart: `filter_confirm_body_gated`
 (hyperscan_tpu/ops/teddy.py:1342) with `_make_kernel_gate` (:649, the
 pallas_call at :1381), `dev_gate_table` (:1644) and stage 2's
 `_make_kernel_fused_classes` over the survivor rows (the pallas_call at
-:1424). Kernels: `csrc/teddy_gate.cu` (`gate_rows`) and the survivor-row
-mode of `csrc/teddy_filter_compact.cu` (`rescan_rows`).
+:1424). Kernels: `csrc/teddy_gate.cu` (`gate_rows`) and
+`csrc/teddy_rescan_rows.cu` (`rescan_rows`).
 
 The reference lists the survivors at a learned capacity capK by a cumsum
 and a searchsorted over every row, packs (predecessor, row) pairs into a
 second rows array for the TPU's cross-row shift, and extracts the
-candidates of the packed plane. Here each block of stage 2 lists the
+candidates of the packed plane. Here each warp of stage 2 lists the
 flagged rows of its own cell and reads each row and its look-back from
 the flat corpus, so no survivor list, capacity or packing exists; stage
 2 has kernel A's output contract, which `compact_combine` takes as it is.
@@ -33,9 +33,8 @@ import torch
 
 from ._build import LAUNCHES
 from .teddy import (CELL, ROW, FilterTables, _candidates_plain,
-                    _class_split, _filter_lib, _n_cells, _on_card,
-                    _raise_on, _table_args, device_tables,
-                    filter_compact_plain)
+                    _class_split, _n_cells, _on_card, _table_args,
+                    device_tables, filter_compact_plain)
 
 ROWS_PER_CELL = CELL // ROW
 
@@ -170,12 +169,31 @@ def gate_rows(corpus_u8: torch.Tensor, gate: GateTables
     return flags, counts
 
 
-def rescan_rows(corpus_u8: torch.Tensor, tables: FilterTables,
-                flags: torch.Tensor, capc: int):
-    """Kernel 6: the full class filter over the flagged rows only (kernel
-    A's survivor-row mode).
+def _rescan_lib():
+    from ._build import library
 
-    flags : uint8 [n_cells * 512] row flags (`gate_rows`)
+    lib = library("teddy_rescan_rows")
+    if not getattr(lib, "_typed", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.hs_teddy_rescan_rows.restype = ci
+        lib.hs_teddy_rescan_rows.argtypes = [
+            vp, cll, vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp]
+        lib.hs_teddy_rescan_rows_error.restype = ctypes.c_char_p
+        lib.hs_teddy_rescan_rows_error.argtypes = [ci]
+        lib._typed = True
+    return lib
+
+
+def rescan_rows(corpus_u8: torch.Tensor, tables: FilterTables,
+                flags: torch.Tensor, capc: int,
+                row_counts: Optional[torch.Tensor] = None):
+    """Kernel 6: the full class filter over the flagged rows only.
+
+    flags      : uint8 [n_cells * 512] row flags (`gate_rows`)
+    row_counts : optional int32 [n_cells], the flagged rows of each cell
+                 (`gate_rows`' counts, the sums of `flags`); the kernel
+                 then reads no flag of a cell whose count is 0. The plain
+                 version ignores it: the output is the same either way.
     Returns kernel A's (pos [n_cells, capc] int32, ascending; counts
     [n_cells] int32, exact) over the candidates inside flagged rows —
     equal to `filter_compact`'s output, since the gate is a superset."""
@@ -186,20 +204,31 @@ def rescan_rows(corpus_u8: torch.Tensor, tables: FilterTables,
     if flags.dtype != torch.uint8 or \
             flags.shape != (n_cells * ROWS_PER_CELL,):
         raise ValueError("flags must be uint8 [n_cells * 512]")
+    if row_counts is not None and (row_counts.dtype != torch.int32 or
+                                   row_counts.shape != (n_cells,)):
+        raise ValueError("row_counts must be int32 [n_cells]")
     if not _on_card(corpus_u8, tables, True):
         return filter_compact_plain(corpus_u8, tables, capc,
                                     use_classes=True, row_flags=flags)
-    if flags.device != corpus_u8.device:
-        raise ValueError("flags and corpus lie on different devices")
-    lib = _filter_lib()
+    flags = flags.contiguous()
+    if flags.device != corpus_u8.device or (
+            row_counts is not None and row_counts.device != flags.device):
+        raise ValueError("flags, row counts and corpus lie on different "
+                         "devices")
+    if flags.data_ptr() % 16:
+        raise ValueError("flags must be 16-byte aligned (vector loads)")
+    lib = _rescan_lib()
     pos = torch.empty((n_cells, capc), dtype=torch.int32,
                       device=corpus_u8.device)
     counts = torch.empty(n_cells, dtype=torch.int32, device=corpus_u8.device)
     stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
+    b2c, tab, M, Wp, _classes = _table_args(tables, True)
     rc = lib.hs_teddy_rescan_rows(
-        corpus_u8.data_ptr(), n, *_table_args(tables, True), capc,
-        flags.contiguous().data_ptr(), pos.data_ptr(), counts.data_ptr(),
-        n_cells, stream)
-    _raise_on(rc, lib, "teddy_rescan_rows")
+        corpus_u8.data_ptr(), n, b2c, tab, M, Wp, capc, flags.data_ptr(),
+        None if row_counts is None else row_counts.contiguous().data_ptr(),
+        pos.data_ptr(), counts.data_ptr(), n_cells, stream)
+    if rc:
+        raise RuntimeError("teddy_rescan_rows launch failed: "
+                           + lib.hs_teddy_rescan_rows_error(rc).decode())
     LAUNCHES["teddy_rescan_rows"] += 1
     return pos, counts

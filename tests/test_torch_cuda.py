@@ -464,6 +464,132 @@ def test_plane_and_extract_kernels_equal_plain(card, n):
             assert torch.equal(meta_k, meta_p) and torch.equal(pos_k, pos_p)
 
 
+def _plane(n: int, density: float, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    hit = rng.random(n) < density
+    return (hit * rng.integers(1, 256, n)).astype(np.uint8)
+
+
+def _same_extract(plane, n_valid: int, cap1: int) -> int:
+    """The one-pass extraction equals its plain version, in one launch;
+    returns the total."""
+    T.reset_launches()
+    meta_k, pos_k = X.plane_extract(plane, n_valid, cap1)
+    assert T.LAUNCHES["plane_extract"] == 1
+    meta_p, pos_p = X.plane_extract_plain(plane, n_valid, cap1)
+    assert torch.equal(meta_k, meta_p), (meta_k, meta_p)
+    assert torch.equal(pos_k, pos_p)
+    return int(meta_p[0])
+
+
+RANGE, STEP = 65536, 8192  # the extraction kernel's bytes a ticket, a step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_nonzero", "many_waves", "n_valid",
+                                  "one_chunk", "two_calls"])
+def test_plane_extract_kernel_edges(card, case):
+    """The extraction's look-back at its edges: every byte nonzero with
+    cap1 below, at and above the total (ranges past the kernel's shared
+    buffer); a 96 MiB plane (1,536 ranges, more than one resident wave, so
+    tickets and the look-back cross waves); n_valid inside a chunk, at 0,
+    at and beside a range edge and at a step edge; a plane of one chunk;
+    and calls in a row on other planes and capacities, so status words of
+    one call cannot leak into the next."""
+    if case == "all_nonzero":
+        plane = torch.ones((1 << 20) + 3 * 256, dtype=torch.uint8,
+                           device=card)
+        n = plane.numel()
+        for cap1 in (1000, n - 1, n, n + 5):
+            assert _same_extract(plane, n, cap1) == n
+    elif case == "many_waves":
+        p = _plane(96 << 20, 0.001, 1)
+        p[(40 << 20):(40 << 20) + 300_000] = 7  # a dense stretch
+        plane = torch.from_numpy(p).to(card)
+        total = _same_extract(plane, plane.numel(), 1 << 20)
+        assert total > 300_000
+        _same_extract(plane, plane.numel(), total // 3)
+        _same_extract(plane, plane.numel() - 1000, T._p2(total))
+    elif case == "n_valid":
+        plane = torch.from_numpy(_plane((1 << 20) + 7 * 256, 0.02,
+                                        2)).to(card)
+        for n_valid in (plane.numel(), 0, 1000, 257, 5 * RANGE,
+                        5 * RANGE + 1, 5 * RANGE - 1, 5 * RANGE - 256,
+                        3 * STEP):
+            _same_extract(plane, n_valid, 1 << 20)
+            _same_extract(plane, n_valid, 37)
+    elif case == "one_chunk":
+        p = np.zeros(256, np.uint8)
+        p[[0, 3, 17, 128, 255]] = [1, 9, 200, 1, 3]
+        plane = torch.from_numpy(p).to(card)
+        for n_valid in (256, 1, 0, 1000):
+            for cap1 in (1, 5, 300):
+                _same_extract(plane, n_valid, cap1)
+    else:
+        big = torch.from_numpy(_plane(4 << 20, 0.05, 3)).to(card)
+        small = torch.from_numpy(_plane(10 * 256, 0.3, 4)).to(card)
+        for plane, cap1 in ((big, 1 << 20), (small, 1 << 20),
+                            (big, 5000), (small, 3), (big, 1 << 18)):
+            _same_extract(plane, plane.numel(), cap1)
+
+
+def _rescan_same(corpus, ft, flags, capc):
+    """The rescan with and without the gate's row counts equals the plain
+    version (one launch each); returns the plain counts."""
+    counts = flags.reshape(-1, G.ROWS_PER_CELL).sum(1, dtype=torch.int32)
+    pos_p, cnt_p = T.filter_compact_plain(corpus, ft, capc,
+                                          use_classes=True, row_flags=flags)
+    for rc in (None, counts):
+        T.reset_launches()
+        pos_k, cnt_k = G.rescan_rows(corpus, ft, flags, capc, row_counts=rc)
+        assert T.LAUNCHES["teddy_rescan_rows"] == 1
+        _same_cells(pos_k, cnt_k, pos_p, cnt_p, capc)
+    return cnt_p
+
+
+@pytest.mark.cuda
+def test_rescan_kernel_hot_and_empty_cells(card):
+    """Cells with every row flagged (the block-wide path), with 65 and 64
+    flagged rows (either side of the hot threshold), with a few and with
+    none, and a last partial cell, over a corpus dense in candidates; capc
+    1, 128 and above the hottest cell's count."""
+    db = ht.compile_multi(GATED_PATS, ids=list(range(len(GATED_PATS))))
+    ft, _ct = T.device_tables(db.lit, card)
+    n = 7 * 65536 + 1000
+    c = _gated_corpus(n, 7)
+    p = np.frombuffer(b"attack0zq union5zq ", np.uint8)
+    c[:65536 * 3] = np.resize(p, 65536 * 3)  # cells 0-2 full of candidates
+    corpus = torch.from_numpy(c).to(card)
+    rows = np.zeros((8, 512), np.uint8)
+    rows[0] = 1                        # hot: all 512
+    rows[2, ::7] = 1                   # hot: 74
+    rows[3, :64] = 1                   # 64: the warp's
+    rows[4, [0, 1, 200, 511]] = 1      # a few, the cell's first and last
+    rows[6, 100:] = 1                  # hot: 412
+    rows[7, :8] = 1                    # the last partial cell, past n too
+    flags = torch.from_numpy(rows.reshape(-1)).to(card)
+    cnt = _rescan_same(corpus, ft, flags, 1)
+    assert int(cnt[0]) > 5000 and int(cnt[1]) == int(cnt[5]) == 0
+    for capc in (128, int(cnt.max()) + 1):
+        _rescan_same(corpus, ft, flags, capc)
+
+
+@pytest.mark.cuda
+def test_rescan_kernel_more_cells_than_warps(card):
+    """More cells than the card holds warps at once (16 a multiprocessor,
+    two blocks of eight warps), flagged by the gate, with a last partial
+    cell: every warp takes several cells."""
+    db = ht.compile_multi(GATED_PATS, ids=list(range(len(GATED_PATS))))
+    ft, _ct = T.device_tables(db.lit, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    n = (sms * 16 + 37) * 65536 - 5000
+    corpus = torch.from_numpy(_gated_corpus(n, 8)).to(card)
+    flags, _k = G.gate_rows(corpus, G.device_gate_table(db.lit, card))
+    for capc in (1, 128):
+        cnt = _rescan_same(corpus, ft, flags, capc)
+    assert int(cnt.sum()) > 10_000
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", list(F.FAMILIES))
 def test_scan_each_family_on_card_counts_launches(card, family):

@@ -3,8 +3,12 @@ checkouts of the port compared on one card.
 
 The kernels that share the Teddy filter loop (csrc/teddy_filter.cuh) at
 the literal main path's shape (the 10k bench ruleset over 512 MiB iid):
-kernel A in compact and plane mode, the gate, the survivor-row rescan,
-kernel 4 (kconfirm) at stages 0-3, kernel 7 in count and list mode and
+kernel A in compact and plane mode, the gate, the survivor-row rescan
+(over iid, over the structured corpus and over one StreamSet round's
+16,384 extents, with the gate's row counts where the checkout's
+`rescan_rows` takes them), the extraction (`plane_extract`, over kernel
+A's iid plane and over a plane with 5% of its bytes nonzero), kernel 4
+(kconfirm) at stages 0-3, kernel 7 in count and list mode and
 both in turn (over the structured corpus too), and `teddy_scan_tensor`
 (count, cumsum, list and the fetch of the candidates); kernel C's
 chunk scan (records mode) with the bounded bench DFA over 256 MiB as one
@@ -17,7 +21,9 @@ and over 32 (a single warp of rows: the serial chain alone); and both
 DFA modes (the chunk scan over the 256 MiB block, the row mode over the
 16,384 rows) with larger bounded DFAs (S x C from 3,072 to 12,288), their
 tables forced into shared and into global memory. Each time
-is the mean of CUDA events over `--reps` calls after a warm-up call.
+is the mean of CUDA events over `--reps` calls after a warm-up call, the
+calls queued behind a spin of the card so that a kernel shorter than its
+host-side launch is timed on the card, not at the host's pace.
 Only calls that the port has had since its kernel 7 and batch scan
 existed are used (kernel 7's list mode takes the per-segment counts
 where the checkout's count mode has them, its per-cell counts before),
@@ -41,6 +47,7 @@ seconds, and each kernel's ms (or each engine route's GB/s).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -50,6 +57,9 @@ import time
 import numpy as np
 
 LARGE_DFA_K = (8, 9, 10)  # S x C = 3,072, 6,144, 12,288
+# a spin of the card (~10 ms) that the timed calls queue behind
+QUEUE_CYCLES = 20_000_000
+DENSE_PLANE = 0.05  # nonzero share of the extraction's dense plane
 # kernel D's engines: name -> (pattern, Grey tunables); kept here, not
 # read from chip_smoke.py, which a parent checkout's copy may lack
 NFA_ENGINES = {
@@ -87,13 +97,16 @@ def main(argv=None) -> int:
     from hyperscan_tpu_torch.ops import _build
     from hyperscan_tpu_torch.ops import dfa as D
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import extract as X
     from hyperscan_tpu_torch.ops import teddy as T
     from hyperscan_tpu_torch.ops import teddy_gate as G
     from hyperscan_tpu_torch.ops import teddy_kconfirm as K
     from hyperscan_tpu_torch.ops import teddy_words as TW
     from hyperscan_tpu_torch.database import compile_patterns
     from hyperscan_tpu_torch.grey import Grey
-    from hyperscan_tpu_torch.tools.benchdata import gen_corpus, patterns
+    from hyperscan_tpu_torch.runtime.stream import history_required
+    from hyperscan_tpu_torch.tools.benchdata import (gen_corpus, patterns,
+                                                     stream_extents)
     import chip_smoke as CS
 
     assert os.path.dirname(ht.__file__).startswith(root)
@@ -111,6 +124,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         e0.record()
         for _ in range(args.reps):
             fn()
@@ -154,11 +168,42 @@ def main(argv=None) -> int:
                                                      use_classes=True))
         out["plane"] = ms(lambda: T.filter_plane(ct, ft, use_classes=True))
         out["gate"] = ms(lambda: G.gate_rows(ct, gt))
+        # the rescan as the checkout's gated family calls it: with the
+        # gate's row counts where its rescan_rows takes them
+        counted = "row_counts" in inspect.signature(
+            G.rescan_rows).parameters
+
+        def rescan(corpus_t, tag):
+            flags, k = G.gate_rows(corpus_t, gt)
+            kw = {"row_counts": k} if counted else {}
+            out[f"rescan{tag}"] = ms(lambda: G.rescan_rows(
+                corpus_t, ft, flags, 256, **kw))
+            if counted:
+                out[f"rescan{tag} without counts"] = ms(
+                    lambda: G.rescan_rows(corpus_t, ft, flags, 256))
+
+        rescan(ct, "")
         sct = T.corpus_tensor(gen_corpus(512 << 20, 1, "structured"), dev)
         out["gate structured"] = ms(lambda: G.gate_rows(sct, gt))
+        rescan(sct, " structured")
         del sct
-        flags, _k = G.gate_rows(ct, gt)
-        out["rescan"] = ms(lambda: G.rescan_rows(ct, ft, flags, 256))
+        # one StreamSet round's extents (chip_smoke.py phase 3e's shape)
+        sdb = ht.deserialize_database(ht.serialize_database(db))
+        sdb.mode = ht.HS_MODE_STREAM
+        ext = stream_extents(CS.STREAMS, CS.STREAM_WRITE,
+                             history_required(sdb), 2)
+        rescan(torch.from_numpy(ext).to(dev), " streamset round")
+        # the extraction over kernel A's iid plane and a dense plane
+        plane = T.filter_plane(ct, ft, use_classes=True)
+        n = ct.numel()
+        cap1 = T._p2(max(1, int(plane.sum())))
+        out["extract"] = ms(lambda: X.plane_extract(plane, n, cap1))
+        g = torch.Generator(device=dev).manual_seed(9)
+        plane = (torch.rand(plane.numel(), generator=g, device=dev)
+                 < DENSE_PLANE).to(torch.uint8)
+        cap1 = T._p2(int(plane.sum()))
+        out["extract dense"] = ms(lambda: X.plane_extract(plane, n, cap1))
+        del plane
         for s in (0, 1, 2, 3):
             out[f"kconfirm stage {s}"] = ms(lambda: K.filter_kconfirm(
                 ct, ft, kt, use_classes=True, stage=s))
@@ -193,7 +238,7 @@ def main(argv=None) -> int:
         if segmented:  # the byte-table route, forced
             out["words count bytes"] = ms(lambda: TW.filter_words_count(
                 ct, wt, use_classes=False))
-        del ct, flags
+        del ct
         words(T.corpus_tensor(gen_corpus(512 << 20, 1, "structured"), dev),
               " structured")
         return total
