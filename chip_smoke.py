@@ -20,6 +20,11 @@ Phases, in order; any failure exits non-zero:
    below its total, which must stay exact) and kernel D (nfa_layered:
    EOD accepts, P > 48, the bench engine, a 45-class engine and P = 502)
    against theirs over a 16 MB batch of blocks.
+   Kernel B's edge cases (every position of a 2^20 + 5 byte corpus as
+   the list, on a tensor ending at n and on one starting 3 bytes past an
+   8-byte boundary; the list behind -1s; every candidate hitting; cap2
+   below the total, which stays exact; more groups than the kernel
+   stages in shared memory; the empty list and a list of -1s).
    Then (2c) the literal families' kernels on the 10k ruleset at 16 MB,
    structured and iid, and on a flood database (`aaaa` over a run of
    `a`): the gate (row flags, K), the survivor-row
@@ -85,7 +90,8 @@ Phases, in order; any failure exits non-zero:
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
    and per-kernel times at the main paths' shapes, beside their bounds
    and their plain versions' times (and torch.nonzero's beside the
-   extraction); kernel C timed and held against its plain version with
+   extraction; kernel B also as its kernel entry alone and at its launch
+   floor); kernel C timed and held against its plain version with
    its tables in shared and in global memory; the seconds of the
    speculative scans' host chains. Every
    literal kernel is held against its plain version at these shapes too
@@ -101,7 +107,15 @@ Phases, in order; any failure exits non-zero:
    plane mode, kernel 4's stages 0-3, stage 3 + kconf_combine and the
    kconfirm family end to end; stages 0-2 against their plain versions
    there too (exact).
-5. One JSON line listing every kernel, the card's name and power limit
+5. The differential tools on the card: the port's hscollider over a
+   seeded subset of 48 expressions of conformance/signatures.txt (the
+   whole battery takes tens of minutes) and three fuzz rounds, each scan
+   on the device branch (the tools compile with
+   Grey(host_scan_limit=0)): no diffs, and the literal kernels launched.
+6. Chimera on the card: ch_scan over a 2 MiB buffer with plants, its
+   prefilter literal-routed, equals ch_scan on the CPU, and a filter
+   kernel launched.
+7. One JSON line listing every kernel, the card's name and power limit
    as nvidia-smi reports them, and the final status line.
 
 Imports nothing of JAX nor of the JAX package.
@@ -212,6 +226,111 @@ def compare_confirm(torch, T, corpus_t, pos, ct, cap2):
     err = int((a - b).abs().max()) if k else 0
     check(err == 0, "kernel B pairs != plain version")
     return (pairs_k, tot_k), err
+
+
+# kernel B's edge cases: literals whose tails end inside the first 8 bytes
+# (zeros before offset 0, tail lengths below 8), a caseless tail mask, and
+# a full 8-byte tail
+CONFIRM_EDGE_PATS = [r"abc", r"wxyz1", r"0123456789", r"HeLLo", r"\x00\x00q9"]
+# the edge corpus: these tokens in a seeded order, a match every few bytes
+CONFIRM_EDGE_TOKENS = [b"abc", b"hElLo", b"wxyz1", b"0123456789",
+                       b"\x00\x00q9", b"z", b"1", b"a"]
+CONFIRM_EDGE_N = (1 << 20) + 5  # not a multiple of 8
+
+
+def confirm_rows_within(torch, pairs_k, pairs_p, k: int) -> bool:
+    """The kernel's first k rows are a sub-multiset of the plain pairs
+    (which of the hash matches a full cap2 keeps is arbitrary)."""
+    a = ((pairs_k[:k, 1].long() << 20) | pairs_k[:k, 0]).cpu().numpy()
+    b = ((pairs_p[:, 1].long() << 20) | pairs_p[:, 0]).cpu().numpy()
+    ka, ca = np.unique(a, return_counts=True)
+    kb, cb = np.unique(b, return_counts=True)
+    at = np.searchsorted(kb, ka).clip(0, max(len(kb) - 1, 0))
+    return bool(len(kb) and (kb[at] == ka).all() and (ca <= cb[at]).all()) \
+        or k == 0
+
+
+def confirm_edge_cases(torch, T, ht) -> int:
+    """Kernel B against its plain version on its edge cases, exact: every
+    position of a corpus of n = 2^20 + 5 bytes as the list (positions 0-7
+    and n - 1, with matches planted there), on a tensor that ends at n and
+    on a view whose start is 3 bytes past an 8-byte boundary; the same
+    list behind -1s (skipped); a list in which every candidate hits
+    (every lane of a warp appends); cap2 below the total (the total stays
+    exact, the rows a sub-multiset); more groups than the kernel stages in
+    shared memory (its records read from global memory); an empty list
+    and a list of -1s. Returns the max abs error."""
+    from hyperscan_tpu_torch.flags import HS_FLAG_CASELESS
+
+    db = ht.compile_multi(CONFIRM_EDGE_PATS,
+                          flags=[0, 0, 0, HS_FLAG_CASELESS, 0],
+                          ids=list(range(len(CONFIRM_EDGE_PATS))))
+    check(db.lit is not None and not db.engines,
+          "kernel B edge database must be literal-routed")
+    _ft, ct = T.device_tables(db.lit, DEVICE)
+    n = CONFIRM_EDGE_N
+    rng = np.random.default_rng(21)
+    pick = rng.integers(0, len(CONFIRM_EDGE_TOKENS), n // 2)
+    host = np.frombuffer(b"".join(CONFIRM_EDGE_TOKENS[i] for i in pick)[:n],
+                         np.uint8).copy()
+    for off, lit in ((0, b"abc"), (3, b"HELLO"), (n - 5, b"wxyz1"),
+                     (n - 15, b"0123456789")):
+        host[off:off + len(lit)] = np.frombuffer(lit, np.uint8)
+    padded = torch.from_numpy(np.concatenate(
+        [np.zeros(3, np.uint8), host])).to(DEVICE)
+    err = 0
+    for where, corpus in (("ends at n", torch.from_numpy(host).to(DEVICE)),
+                          ("start 3 past 8", padded[3:])):
+        every = torch.arange(n, dtype=torch.int32, device=DEVICE)
+        pairs_p, tot_p = T.hash_confirm_plain(corpus, every, ct, 1 << 22)
+        total = int(tot_p)
+        check(total > n // 16, "kernel B edge corpus has too few matches")
+        hit_pos = pairs_p[:total, 1]
+        check({0 + 2, 3 + 4, n - 1} <= set(hit_pos.tolist()),
+              "kernel B edge plants at 2, 7 and n - 1 not matched")
+        cap = T._p2(total + 1)
+        (_p, tot), e = compare_confirm(torch, T, corpus, every, ct, cap)
+        err = max(err, e)
+        # the same list behind -1s
+        padded_pos = torch.cat([every, torch.full(
+            (n // 3,), -1, dtype=torch.int32, device=DEVICE)])
+        (_p, t_pad), e = compare_confirm(torch, T, corpus, padded_pos, ct,
+                                         cap)
+        err = max(err, e)
+        check(int(t_pad) == total, "kernel B lost pairs behind -1s")
+        # every candidate hits
+        hits = torch.unique(hit_pos).int()
+        (_p, t_hits), e = compare_confirm(torch, T, corpus, hits, ct, cap)
+        err = max(err, e)
+        check(int(t_hits) >= hits.numel(), "a hitting candidate lost a pair")
+        # cap2 below the total: the total exact, the rows plain pairs
+        small = total // 3
+        pairs_k, tot_k = T.hash_confirm(corpus, every, ct, small)
+        torch.cuda.synchronize()
+        check(int(tot_k) == total, "kernel B total past cap2 != plain")
+        check(confirm_rows_within(torch, pairs_k, pairs_p[:total], small),
+              "kernel B rows past cap2 are not plain pairs")
+        # more groups than the kernel stages (1,536): each group R times
+        R = 1536 // len(ct.groups) + 1
+        many = T.ConfirmTables(groups=ct.groups * R,
+                               meta=ct.meta.repeat(R, 1), slots=ct.slots)
+        (_p, t_many), e = compare_confirm(torch, T, corpus, every[:4096],
+                                          many, 1 << 22)
+        err = max(err, e)
+        check(int(t_many) > 0, "kernel B many-group case has no match")
+        # an empty list, a list of -1s
+        before = T.LAUNCHES["teddy_hash_confirm"]
+        _pk, t0 = T.hash_confirm(corpus, every[:0], ct, 8)
+        check(T.LAUNCHES["teddy_hash_confirm"] == before,
+              "kernel B launched on an empty list")
+        _pk, t1 = T.hash_confirm(corpus, torch.full_like(every, -1), ct, 8)
+        check(int(t0) == int(t1) == 0,
+              "kernel B matched on an empty list or on -1s")
+        log(f"kernel B edge cases ({where}, n = {n}): {total} matches of "
+            f"{n} positions, {hits.numel()} all-hit candidates "
+            f"({int(t_hits)} pairs), cap2 {small} < total, "
+            f"G = {len(many.groups)} ({int(t_many)} pairs): exact")
+    return err
 
 
 def kernel_checks(torch, T, dbs):
@@ -2152,25 +2271,184 @@ def kernel_times(torch, T, db, corpus, clock_hz) -> dict:
     nz_ms = cuda_ms(torch, lambda: torch.nonzero(plane), 5)
     del plane
 
-    _meta, pos = T.compact_combine(pos_c, cnt, capc, cap1)
+    meta1, pos = T.compact_combine(pos_c, cnt, capc, cap1)
     (_pairs, tot), err_b = compare_confirm(torch, T, corpus_t, pos, ct, cap2)
-    b_ms = cuda_ms(torch, lambda: T.hash_confirm(corpus_t, pos, ct, cap2),
-                   50)
-    b_plain = cuda_ms(torch, lambda: T.hash_confirm_plain(
-        corpus_t, pos, ct, cap2), 5)
+    b = confirm_times(torch, T, corpus_t, pos, ct, cap2, int(tot))
     k = min(total, cap1)
     probes = sum(g[4] for g in ct.groups)
     b_bytes = (cap1 * 4 + k * 8 + min(k * probes * 4, ct.slots.numel() * 4)
                + ct.meta.numel() * 4 + int(tot) * 8 + 4)
+    # per candidate and group: the masks, two multiplies, the avalanche
+    # (two shifts, two xors, a multiply) and, per probe, an add, a mask,
+    # a compare (a dozen operations and two a probe)
+    b_ops = k * sum(12 + 2 * g[4] for g in ct.groups)
+    t_bytes = b_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = b_ops / (INT_OPS_PER_CLK * clock_hz) * 1e3
     return {
         "M": M, "W": W, "classes": use_classes, "capc": capc, "cap1": cap1,
         "cap2": cap2, "n_cells": n_cells, "candidates": total,
         "max_cell": int(cnt.max()), "pairs": int(tot),
         "a": dict(a, nonzero_ms=nz_ms), "a_bytes_tables": a_bytes,
-        "b": {"ms": b_ms, "plain_ms": b_plain,
-              "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
-              "bound_by": "bytes", "err": err_b},
+        "b": dict(b, bound_ms=max(t_bytes, t_ops),
+                  bound_by="operations" if t_ops > t_bytes else "bytes",
+                  bytes_ms=t_bytes, operations_ms=t_ops, err=err_b),
     }
+
+
+def confirm_times(torch, T, corpus_t, pos, ct, cap2, pairs_n) -> dict:
+    """Kernel B at the main path's inputs: the wrapper as the path calls
+    it (the counter's memset and the kernel; `ms`), the kernel alone (its
+    launch entry on a counter zeroed once, with room for every call's
+    `pairs_n` pairs, so each call writes all of them; `kernel_ms`), the
+    launch floor (both over a list of -1s; `floor_ms`, `floor_kernel_ms`)
+    and the plain version."""
+    lib = T._confirm_lib()
+    dev = corpus_t.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    reps = 50
+    cap_t = (reps + 1) * max(pairs_n, 1)  # cuda_ms makes reps + 1 calls
+    pairs = torch.empty((cap_t, 2), dtype=torch.int32, device=dev)
+    total = torch.zeros(1, dtype=torch.int32, device=dev)
+    none = torch.full_like(pos, -1)
+
+    def launch(p):
+        args = T.confirm_args(corpus_t, p, ct)
+        rc = lib.hs_teddy_hash_confirm_launch(*args, pairs.data_ptr(), cap_t,
+                                              total.data_ptr(), stream)
+        check(rc == 0, "teddy_hash_confirm_launch failed")
+
+    out = {
+        "ms": cuda_ms(torch, lambda: T.hash_confirm(corpus_t, pos, ct, cap2),
+                      reps),
+        "kernel_ms": cuda_ms(torch, lambda: launch(pos), reps)}
+    torch.cuda.synchronize()
+    check(int(total) == (reps + 1) * pairs_n,
+          "kernel B timing calls lost pairs")
+    out.update({
+        "floor_ms": cuda_ms(torch, lambda: T.hash_confirm(
+            corpus_t, none, ct, cap2), reps),
+        "floor_kernel_ms": cuda_ms(torch, lambda: launch(none), reps),
+        "plain_ms": cuda_ms(torch, lambda: T.hash_confirm_plain(
+            corpus_t, pos, ct, cap2), 5),
+        "library_ms": None})
+    return out
+
+
+# --- phase 5: the differential tools on the card ----------------------------
+
+BATTERY = "conformance/signatures.txt"
+BATTERY_SUBSET = 48  # the seeded subset of the battery's expressions
+BATTERY_SEED = 0
+FUZZ_ROUNDS = 3
+FUZZ_SEED = 0
+LITERAL_KERNELS = ("teddy_filter_compact", "teddy_hash_confirm", "teddy_gate",
+                   "teddy_rescan_rows", "teddy_kconfirm",
+                   "teddy_filter_plane", "plane_extract")
+
+
+def battery_subset(k: int, seed: int) -> list:
+    """The lines of a seeded subset of the conformance battery: k of its
+    expressions that are not combinations, and every combination whose
+    sub-expression ids all lie among them."""
+    import re
+
+    from hyperscan_tpu_torch.flags import HS_FLAG_COMBINATION
+    from hyperscan_tpu_torch.tools.hscheck import parse_line
+
+    with open(BATTERY, errors="replace") as f:
+        lines = [l for l in f.read().splitlines() if parse_line(l)]
+    ents = [parse_line(l) for l in lines]
+    plain = [i for i, e in enumerate(ents) if not e[2] & HS_FLAG_COMBINATION]
+    pick = {plain[j] for j in np.random.default_rng(seed).choice(
+        len(plain), min(k, len(plain)), replace=False).tolist()}
+    ids = {ents[i][0] for i in pick}
+    pick |= {i for i, e in enumerate(ents) if e[2] & HS_FLAG_COMBINATION
+             and {int(x) for x in re.findall(r"\d+", e[1])} <= ids}
+    return [lines[i] for i in sorted(pick)]
+
+
+def differential_tools(T) -> dict:
+    """Phase 5: the port's hscollider over a seeded subset of the
+    conformance battery and fuzz rounds, every scan on the card (both
+    tools compile with Grey(host_scan_limit=0), so their small corpora
+    take the device branch). No diff, no fuzz failure, and the literal
+    kernels launched during each."""
+    import os
+    import tempfile
+
+    from hyperscan_tpu_torch.tools import fuzz, hscollider
+
+    sub = battery_subset(BATTERY_SUBSET, BATTERY_SEED)
+    out = {"battery": len(sub)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "battery.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(sub) + "\n")
+        T.reset_launches()
+        t0 = time.perf_counter()
+        rc = hscollider.main([path, "--device", DEVICE, "--seed",
+                              str(BATTERY_SEED)])
+        out["collider_s"] = time.perf_counter() - t0
+    out["collider_launches"] = dict(T.LAUNCHES)
+    check(rc == 0, f"hscollider found diffs on the card ({len(sub)} "
+          "expressions of the battery)")
+    T.reset_launches()
+    rng = np.random.default_rng(FUZZ_SEED)
+    t0 = time.perf_counter()
+    for r in range(FUZZ_ROUNDS):
+        fails = fuzz.fuzz_round(rng, device=DEVICE)
+        check(not fails, f"fuzz round {r} on the card: {fails[:3]}")
+    out["fuzz_s"] = time.perf_counter() - t0
+    out["fuzz_launches"] = dict(T.LAUNCHES)
+    for tool in ("collider", "fuzz"):
+        check(sum(out[f"{tool}_launches"][k] for k in LITERAL_KERNELS) > 0,
+              f"the {tool}'s scans launched no literal kernel")
+    return out
+
+
+# --- phase 6: Chimera on the card --------------------------------------------
+
+CHIMERA_PATS = [r"(\w+)@example\.com", r"attack(\d+)", r"GET /(\w+)\.php"]
+CHIMERA_BYTES = 2 * MB
+CHIMERA_PLANTS = [b" bob@example.com ", b" attack42 ", b" GET /index.php "]
+
+
+def chimera_path(T) -> dict:
+    """Phase 6: `ch_scan` over a buffer above `host_scan_limit` with a
+    database whose prefilter is literal-routed: its matches on the card
+    equal its matches on the CPU, and the family's filter kernel
+    launched."""
+    from hyperscan_tpu_torch import chimera as ch
+
+    db = ch.ch_compile_multi(CHIMERA_PATS, ids=[1, 2, 3])
+    pf = db.prefilter_db
+    check(pf is not None and pf.lit is not None and not pf.engines
+          and db.prefilter_ids == [0, 1, 2],
+          "the Chimera prefilter must be literal-routed")
+    data = bytearray(gen_corpus(CHIMERA_BYTES, 7, "structured").tobytes())
+    for k, off in enumerate(range(4096, CHIMERA_BYTES - 64, 65_537)):
+        plant = CHIMERA_PLANTS[k % len(CHIMERA_PLANTS)]
+        data[off:off + len(plant)] = plant
+    data = bytes(data)
+    check(len(data) > pf.host_scan_limit, "Chimera buffer below the limit")
+    T.reset_launches()
+    t0 = time.perf_counter()
+    got = []
+    rc = ch.ch_scan(db, data, matches=got, device=DEVICE)
+    card_s = time.perf_counter() - t0
+    launches = dict(T.LAUNCHES)
+    want = []
+    rc_cpu = ch.ch_scan(db, data, matches=want, device="cpu")
+    check(rc == rc_cpu == ch.CH_SUCCESS, "ch_scan return codes differ")
+    check(got == want, "ch_scan on the card != ch_scan on the CPU")
+    n_plants = len(range(4096, CHIMERA_BYTES - 64, 65_537))
+    check(len(got) >= n_plants, "Chimera missed planted matches")
+    check(any(launches[k] > 0 for k in ("teddy_filter_compact",
+                                        "teddy_rescan_rows", "teddy_kconfirm",
+                                        "teddy_filter_plane")),
+          "Chimera's prefilter launched no filter kernel")
+    return {"matches": len(got), "plants": n_plants, "card_s": card_s,
+            "launches": launches}
 
 
 def main() -> int:
@@ -2213,6 +2491,7 @@ def main() -> int:
         log(f"compiled {n_pat} patterns in {time.perf_counter() - t0:.1f} s"
             f" (M={db.lit.masks.shape[0]}, W={db.lit.masks.shape[1]})")
     err_a, err_b = kernel_checks(torch, T, dbs)
+    err_b = max(err_b, confirm_edge_cases(torch, T, ht))
 
     # phase 2b: the engine kernels at 16 MB
     edbs = engine_dbs(ht)
@@ -2441,6 +2720,22 @@ def main() -> int:
     log(f"stage probe bounds and plain versions [{card}]: " + json.dumps(
         {"bounds": probe["bounds"], "plain_ms": probe["plain_ms"],
          "launches": probe["launches"]}, sort_keys=True))
+    # phase 5: the differential tools on the card
+    t5 = time.perf_counter()
+    dt = differential_tools(T)
+    log(f"hscollider on the card: {dt['battery']} expressions of "
+        f"{BATTERY} (seed {BATTERY_SEED}), no diffs, "
+        f"{dt['collider_s']:.1f} s; {FUZZ_ROUNDS} fuzz rounds (seed "
+        f"{FUZZ_SEED}) consistent, {dt['fuzz_s']:.1f} s; launches "
+        f"(collider) {dt['collider_launches']}, (fuzz) "
+        f"{dt['fuzz_launches']}; phase 5 {time.perf_counter() - t5:.1f} s")
+    # phase 6: Chimera on the card
+    t6 = time.perf_counter()
+    chm = chimera_path(T)
+    log(f"Chimera on the card: {chm['matches']} matches ({chm['plants']} "
+        f"planted) over {CHIMERA_BYTES} B equal the CPU's, ch_scan "
+        f"{chm['card_s']:.3f} s; launches {chm['launches']}; phase 6 "
+        f"{time.perf_counter() - t6:.1f} s")
     log("forced-family GB/s [" + card + "]: " + json.dumps(
         {f"{k} {f}": round(v["gb_s"], 4) for (k, f), v in forced.items()}))
     c = ekt[("bounded_dfa", "one_block")]
@@ -2470,7 +2765,13 @@ def main() -> int:
          "launches": launches["teddy_hash_confirm"],
          "max_abs_err": err_b, "ms": r["b"]["ms"],
          "plain_ms": r["b"]["plain_ms"], "bound_ms": r["b"]["bound_ms"],
-         "bound_by": r["b"]["bound_by"], "library_ms": None},
+         "bound_by": r["b"]["bound_by"], "library_ms": None,
+         # the kernel's entry alone (no memset) and the launch floor (a
+         # list of -1s), beside the wrapper's `ms`
+         **{k: r["b"][k] for k in ("kernel_ms", "floor_ms",
+                                   "floor_kernel_ms")},
+         "structured": {k: kt["structured"]["b"][k] for k in (
+             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "dfa_scan", "route": "cuda",
          "source": "hyperscan_tpu_torch/csrc/dfa_scan.cu",
          "replaces": "hyperscan_tpu/ops/dfa_kernel.py:132",

@@ -546,13 +546,33 @@ def _confirm_lib():
     lib = library("teddy_hash_confirm")
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hs_teddy_hash_confirm.restype = ci
-        lib.hs_teddy_hash_confirm.argtypes = [
-            vp, cll, vp, ci, vp, ci, vp, vp, ci, vp, vp]
+        for fn in (lib.hs_teddy_hash_confirm,
+                   lib.hs_teddy_hash_confirm_launch):
+            fn.restype = ci
+            fn.argtypes = [vp, cll, vp, ci, vp, ci, vp, vp, ci, vp, vp]
         lib.hs_teddy_hash_confirm_error.restype = ctypes.c_char_p
         lib.hs_teddy_hash_confirm_error.argtypes = [ci]
         lib._typed = True
     return lib
+
+
+def confirm_args(corpus_u8: torch.Tensor, pos: torch.Tensor,
+                 tables: ConfirmTables):
+    """Checks kernel B's inputs and returns the arguments of its entry
+    points up to the slot tables: (corpus, n, positions, n_pos, group
+    records, G, slot tables). `pos` must be contiguous."""
+    _check_corpus(corpus_u8)
+    if pos.dtype != torch.int32 or pos.dim() != 1 or \
+            not pos.is_contiguous():
+        raise ValueError("positions must be a flat contiguous int32 "
+                         "tensor")
+    dev = corpus_u8.device
+    if pos.device != dev or tables.slots.device != dev:
+        raise ValueError("corpus, positions and tables lie on different "
+                         "devices")
+    return (corpus_u8.data_ptr(), corpus_u8.numel(), pos.data_ptr(),
+            pos.numel(), tables.meta.data_ptr(), len(tables.groups),
+            tables.slots.data_ptr())
 
 
 def hash_confirm(corpus_u8: torch.Tensor, pos: torch.Tensor,
@@ -561,38 +581,31 @@ def hash_confirm(corpus_u8: torch.Tensor, pos: torch.Tensor,
 
     corpus_u8 : flat uint8 corpus tensor
     pos       : int32 [cap1] candidate positions, -1 = empty slot
-    tables    : ConfirmTables on the same device
+    tables    : ConfirmTables on the same device (any number of groups)
     Returns (pairs int32 [cap2, 2] = (class id + 1, pos) for the first
     min(total, cap2) rows, total int32 [1] = the exact number of
-    hash-matched pairs). The kernel's row order is arbitrary (one atomic
-    counter); `confirm_finish` sorts."""
-    _check_corpus(corpus_u8)
-    if pos.dtype != torch.int32 or pos.dim() != 1:
-        raise ValueError("positions must be a flat int32 tensor")
+    hash-matched pairs). The kernel's row order is arbitrary;
+    `confirm_finish` sorts. On the card the entry point zeroes `total`
+    and launches the kernel: nothing else runs on the card."""
     if cap2 < 1:
         raise ValueError("cap2 must be positive")
+    pos = pos.contiguous()
     if corpus_u8.device.type == "cpu":
+        confirm_args(corpus_u8, pos, tables)
         return hash_confirm_plain(corpus_u8, pos, tables, cap2)
     if corpus_u8.device.type != "cuda":
         raise ValueError(f"unsupported device {corpus_u8.device}")
-    if pos.device != corpus_u8.device or \
-            tables.slots.device != corpus_u8.device:
-        raise ValueError("corpus, positions and tables lie on different "
-                         "devices")
+    args = confirm_args(corpus_u8, pos, tables)
     lib = _confirm_lib()
-    pos = pos.contiguous()
     pairs = torch.empty((cap2, 2), dtype=torch.int32,
                         device=corpus_u8.device)
-    total = torch.zeros(1, dtype=torch.int32, device=corpus_u8.device)
+    total = torch.empty(1, dtype=torch.int32, device=corpus_u8.device)
     stream = torch.cuda.current_stream(corpus_u8.device).cuda_stream
-    rc = lib.hs_teddy_hash_confirm(
-        corpus_u8.data_ptr(), corpus_u8.numel(), pos.data_ptr(),
-        pos.numel(), tables.meta.data_ptr(), len(tables.groups),
-        tables.slots.data_ptr(), pairs.data_ptr(), cap2, total.data_ptr(),
-        stream)
+    rc = lib.hs_teddy_hash_confirm(*args, pairs.data_ptr(), cap2,
+                                   total.data_ptr(), stream)
     if rc:
         raise RuntimeError("teddy_hash_confirm launch failed: "
                            + lib.hs_teddy_hash_confirm_error(rc).decode())
-    if pos.numel():
+    if args[3] and args[5]:
         LAUNCHES["teddy_hash_confirm"] += 1
     return pairs, total

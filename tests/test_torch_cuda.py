@@ -79,6 +79,105 @@ def test_hash_confirm_kernel_equals_plain(card):
         set(map(tuple, pairs_p[:k].tolist()))
 
 
+EDGE_PATS = [r"abc", r"wxyz1", r"0123456789", r"HeLLo", r"\x00\x00q9"]
+EDGE_TOKENS = [b"abc", b"hElLo", b"wxyz1", b"0123456789", b"\x00\x00q9",
+               b"z", b"1", b"a"]
+
+
+@pytest.fixture
+def edge(card):
+    """Kernel B's edge database (tails shorter than 8 bytes, a caseless
+    mask, a full 8-byte tail) and a corpus of n = 2^18 + 5 bytes (not a
+    multiple of 8) with a match every few bytes and at 2, 7 and n - 1."""
+    db = ht.compile_multi(EDGE_PATS, flags=[0, 0, 0, ht.HS_FLAG_CASELESS, 0],
+                          ids=list(range(len(EDGE_PATS))))
+    _ft, ct = T.device_tables(db.lit, card)
+    n = (1 << 18) + 5
+    pick = np.random.default_rng(21).integers(0, len(EDGE_TOKENS), n // 2)
+    host = np.frombuffer(b"".join(EDGE_TOKENS[i] for i in pick)[:n],
+                         np.uint8).copy()
+    for off, lit in ((0, b"abc"), (3, b"HELLO"), (n - 5, b"wxyz1")):
+        host[off:off + len(lit)] = np.frombuffer(lit, np.uint8)
+    return ct, host
+
+
+def _pair_keys(pairs, k):
+    return sorted(((pairs[:k, 1].long() << 20) | pairs[:k, 0]).tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 3])  # 3: a view 3 bytes past 8
+def test_hash_confirm_kernel_edges(card, edge, start):
+    """Every position as a candidate (0-7 and n - 1 included) on a tensor
+    that ends at n or starts off an 8-byte boundary; the same list behind
+    -1s (skipped); the empty list (no launch) and a list of -1s."""
+    ct, host = edge
+    n = host.size
+    corpus = torch.from_numpy(np.concatenate(
+        [np.zeros(start, np.uint8), host])).to(card)[start:]
+    every = torch.arange(n, dtype=torch.int32, device=card)
+    pairs_p, tot_p = T.hash_confirm_plain(corpus, every, ct, 1 << 20)
+    total = int(tot_p)
+    assert total > n // 16
+    assert {2, 7, n - 1} <= set(pairs_p[:total, 1].tolist())
+    pairs_k, tot_k = T.hash_confirm(corpus, every, ct, 1 << 20)
+    assert int(tot_k) == total
+    assert _pair_keys(pairs_k, total) == _pair_keys(pairs_p, total)
+    padded = torch.cat([every, torch.full((999,), -1, dtype=torch.int32,
+                                          device=card)])
+    pairs_c, tot_c = T.hash_confirm(corpus, padded, ct, 1 << 20)
+    assert int(tot_c) == total
+    assert _pair_keys(pairs_c, total) == _pair_keys(pairs_p, total)
+    T.reset_launches()
+    assert int(T.hash_confirm(corpus, every[:0], ct, 8)[1]) == 0
+    assert T.LAUNCHES["teddy_hash_confirm"] == 0
+    assert int(T.hash_confirm(corpus, torch.full_like(every, -1), ct,
+                              8)[1]) == 0
+    assert T.LAUNCHES["teddy_hash_confirm"] == 1
+
+
+@pytest.mark.cuda
+def test_hash_confirm_kernel_all_hit_and_past_cap2(card, edge):
+    """A list in which every candidate hits (every lane of a warp
+    appends), and cap2 below the total: the total stays exact and the
+    rows kept are plain pairs."""
+    ct, host = edge
+    corpus = torch.from_numpy(host).to(card)
+    every = torch.arange(host.size, dtype=torch.int32, device=card)
+    pairs_p, tot_p = T.hash_confirm_plain(corpus, every, ct, 1 << 20)
+    total = int(tot_p)
+    hits = torch.unique(pairs_p[:total, 1]).int()
+    pairs_h, tot_h = T.hash_confirm(corpus, hits, ct, 1 << 20)
+    want_h, want_t = T.hash_confirm_plain(corpus, hits, ct, 1 << 20)
+    assert int(tot_h) == int(want_t) >= hits.numel()
+    assert _pair_keys(pairs_h, int(tot_h)) == _pair_keys(want_h, int(tot_h))
+    small = total // 3
+    pairs_k, tot_k = T.hash_confirm(corpus, every, ct, small)
+    assert int(tot_k) == total
+    kept = _pair_keys(pairs_k, small)
+    want = _pair_keys(pairs_p, total)
+    for key in set(kept):
+        assert kept.count(key) <= want.count(key)
+
+
+@pytest.mark.cuda
+def test_hash_confirm_kernel_many_groups(card, edge):
+    """More groups than the kernel stages in shared memory (1,536): the
+    records are read from global memory, and every pair comes once a
+    repeat of its group."""
+    ct, host = edge
+    corpus = torch.from_numpy(host).to(card)
+    R = 1536 // len(ct.groups) + 1
+    many = T.ConfirmTables(groups=ct.groups * R, meta=ct.meta.repeat(R, 1),
+                           slots=ct.slots)
+    cands = torch.arange(4096, dtype=torch.int32, device=card)
+    want_p, want_t = T.hash_confirm_plain(corpus, cands, many, 1 << 22)
+    got_p, got_t = T.hash_confirm(corpus, cands, many, 1 << 22)
+    total = int(want_t)
+    assert total > 0 and int(got_t) == total
+    assert _pair_keys(got_p, total) == _pair_keys(want_p, total)
+
+
 @pytest.mark.cuda
 def test_scan_on_card_equals_cpu_and_counts_launches(card):
     db = compile_patterns(PATS, ids=list(range(len(PATS))),
@@ -947,3 +1046,52 @@ def test_dfa_scan_rows_kernel_equals_plain(card, B, L, placement):
                                       tabs.b2c, tabs.accept, init, d_t, l_t)
     assert torch.equal(a_k, a_p) and torch.equal(f_k, f_p)
     assert int((a_p != 0).sum()) > B // 2
+
+
+# --- the differential tools and Chimera on the card -------------------------
+
+from hyperscan_tpu_torch import chimera as CH  # noqa: E402
+from hyperscan_tpu_torch.tools import fuzz, hscollider  # noqa: E402
+
+TOOL_PATS = ("1:/attack[0-9]+/\n2:/foo(bar|baz)/i\n3:/err(or)?/\n"
+             "4:/[ab]+c[de]+/\n5:/gatex(ab|cd)*doorq/\n"
+             "6:/num[0-9]{2,4}tail/L\n7:/lead[a-z]*mark7/\n")
+LITERAL = ("teddy_filter_compact", "teddy_hash_confirm", "teddy_gate",
+           "teddy_rescan_rows", "teddy_kconfirm", "teddy_filter_plane",
+           "plane_extract")
+
+
+@pytest.mark.cuda
+def test_hscollider_on_card(card, tmp_path, capsys):
+    p = tmp_path / "pats.txt"
+    p.write_text(TOOL_PATS)
+    T.reset_launches()
+    assert hscollider.main([str(p), "--seed", "3", "--device", "cuda"]) == 0
+    assert "all consistent" in capsys.readouterr().out
+    assert sum(T.LAUNCHES[k] for k in LITERAL) > 0
+
+
+@pytest.mark.cuda
+def test_fuzz_rounds_on_card(card):
+    rng = np.random.default_rng(99)
+    T.reset_launches()
+    for _ in range(2):
+        assert fuzz.fuzz_round(rng, 5, 4, device="cuda") == []
+    assert sum(T.LAUNCHES[k] for k in LITERAL) > 0
+
+
+@pytest.mark.cuda
+def test_chimera_on_card_equals_cpu(card):
+    pats = [r"(\w+)@example\.com", r"attack(\d+)", r"(foo|bar)\1"]
+    db = CH.ch_compile_multi(pats, ids=[1, 2, 3])
+    data = bytearray(_corpus(300_001, 4).tobytes())
+    for off in range(100, 299_000, 7919):
+        data[off:off + 24] = b" bob@example.com foofoo "
+    data = bytes(data)
+    T.reset_launches()
+    got, want = [], []
+    assert CH.ch_scan(db, data, matches=got) == CH.CH_SUCCESS  # the card
+    assert T.LAUNCHES["teddy_filter_compact"] + T.LAUNCHES["teddy_gate"] \
+        + T.LAUNCHES["teddy_kconfirm"] + T.LAUNCHES["teddy_filter_plane"] > 0
+    assert CH.ch_scan(db, data, matches=want, device="cpu") == CH.CH_SUCCESS
+    assert got == want and len(got) >= 37

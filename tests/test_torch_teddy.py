@@ -216,3 +216,75 @@ def test_confirm_overflow_keeps_every_pair(dbs, monkeypatch):
     t1, h1, t2 = PF.family_state(lit).obs["compact"]
     cap1, capc, cap2 = PF._caps_for(lit, 1)
     assert h1 > 1 and t2 > 1 and capc >= h1 and cap1 >= t1 and cap2 >= t2
+
+
+def _candidate_list(port, seed: int):
+    """A corpus, the compact family's candidate list (candidates first,
+    then -1s) and its meta1 (the candidate total first), on the CPU."""
+    corpus = torch.from_numpy(_corpus(seed, 70_001, "printable"))
+    ft, ct = PT.device_tables(port.lit, "cpu")
+    pos_c, cnt = PT.filter_compact(corpus, ft, 256,
+                                   use_classes=ft.cmasks is not None)
+    total = int(cnt.sum())
+    meta1, pos = PT.compact_combine(pos_c, cnt, 256, PT._p2(total + 64))
+    return corpus, ct, meta1, pos
+
+
+@pytest.mark.parametrize("shape", ["combined", "trimmed", "longer_tail",
+                                   "only_minus_ones"])
+def test_hash_confirm_list_ending_in_minus_ones(dbs, shape):
+    """Kernel B reads the whole list and skips its -1 slots: the compact
+    list as combined (candidates first, then -1s), the candidates alone,
+    the list with cap1 more -1s behind it, and a list of -1s alone give
+    the pairs of the candidates alone (none for the last)."""
+    _ref, port = dbs
+    corpus, ct, meta1, pos = _candidate_list(port, 11)
+    total = int(meta1[0])
+    cands = pos[:total]
+    assert total > 0 and bool((cands >= 0).all())
+    assert bool((pos[total:] == -1).all())
+    lst = {"combined": pos, "trimmed": cands,
+           "longer_tail": torch.cat([pos, torch.full_like(pos, -1)]),
+           "only_minus_ones": torch.full_like(pos, -1)}[shape]
+    got = PT.hash_confirm(corpus, lst, ct, 4096)
+    want = PT.hash_confirm(corpus, cands if shape != "only_minus_ones"
+                           else cands[:0], ct, 4096)
+    assert int(got[1]) == int(want[1])
+    assert torch.equal(got[0], want[0])
+    assert (int(got[1]) > 0) == (shape != "only_minus_ones")
+
+
+def test_hash_confirm_many_groups(dbs):
+    """Any number of groups: a table whose groups repeat R times (G past
+    the 1,536 records the kernel stages in shared memory) gives every
+    pair R times."""
+    _ref, port = dbs
+    corpus, ct, meta1, pos = _candidate_list(port, 13)
+    R = 1536 // len(ct.groups) + 1
+    many = PT.ConfirmTables(groups=ct.groups * R, meta=ct.meta.repeat(R, 1),
+                            slots=ct.slots)
+    assert len(many.groups) > 1536
+    cands = pos[:int(meta1[0])][:64]
+    one_p, one_t = PT.hash_confirm(corpus, cands, ct, 4096)
+    got_p, got_t = PT.hash_confirm(corpus, cands, many, 4096 * R)
+    assert int(one_t) > 0 and int(got_t) == R * int(one_t)
+    k = int(one_t)
+    assert torch.equal(got_p[:R * k].reshape(k, R, 2),
+                       one_p[:k, None, :].expand(k, R, 2))
+
+
+def test_hash_confirm_checks_its_arguments(dbs):
+    _ref, port = dbs
+    corpus, ct, meta1, pos = _candidate_list(port, 12)
+    with pytest.raises(ValueError, match="int32"):
+        PT.hash_confirm(corpus, pos.long(), ct, 64)
+    with pytest.raises(ValueError, match="cap2"):
+        PT.hash_confirm(corpus, pos, ct, 0)
+    # a strided list is made contiguous by the wrapper
+    two = torch.stack([pos, pos], 1)
+    assert torch.equal(PT.hash_confirm(corpus, two[:, 0], ct, 64)[0],
+                       PT.hash_confirm(corpus, pos, ct, 64)[0])
+    args = PT.confirm_args(corpus, pos, ct)
+    assert args[2] == pos.data_ptr() and args[3] == pos.numel()
+    assert args[4] == ct.meta.data_ptr() and args[5] == len(ct.groups)
+    assert args[6] == ct.slots.data_ptr()

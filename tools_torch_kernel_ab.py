@@ -20,7 +20,19 @@ the cyclic NFA's lazy-DFA core) over the 256 MiB block;
 and over 32 (a single warp of rows: the serial chain alone); and both
 DFA modes (the chunk scan over the 256 MiB block, the row mode over the
 16,384 rows) with larger bounded DFAs (S x C from 3,072 to 12,288), their
-tables forced into shared and into global memory. Each time
+tables forced into shared and into global memory; kernel B (the hash
+confirm) at the main path's inputs over 512 MiB iid and structured and
+over one StreamSet round's extents (candidates from kernel A's compact
+mode, capc 256; cap2 the next power of two past the pair total): the
+wrapper as the literal path calls it, the kernel's entry alone on a
+counter zeroed once (with room for every call's pairs), the launch
+floor (both over a list of -1s), and
+`torch.zeros(1)` alone (the parent's fill of the counter); and
+(`--part e2e`, not in `all`) the literal main path and the streaming path
+end to end as the checkout's own chip_smoke.py runs them (phases 3 and
+3e: GB/s of each timed scan, StreamSet pass and scan_streams round; the
+stage seconds of three literal scans a corpus, as chip_smoke.py's
+breakdown takes them, and of the StreamSet round). Each time
 is the mean of CUDA events over `--reps` calls after a warm-up call, the
 calls queued behind a spin of the card so that a kernel shorter than its
 host-side launch is timed on the card, not at the host's pace.
@@ -32,13 +44,15 @@ so a parent checkout can be timed by the same script.
 Usage, on a machine with a CUDA card:
 
     python3 tools_torch_kernel_ab.py [--root DIR] [--db FILE] [--reps 10]
-                                     [--part all|literal|dfa|nfa|engines]
+                                     [--part all|literal|dfa|nfa|engines|
+                                             confirm|e2e]
 
 `--root` is the checkout whose `hyperscan_tpu_torch` is timed (this one by
 default; its kernels are built there); `--db` caches the serialized 10k
 database (made when missing), so runs over two checkouts compile it once;
 `--part literal` times only the Teddy kernels, `--part dfa` only the DFA
-scans, `--part nfa` only kernel D; `--part engines` (not in `all`) times
+scans, `--part nfa` only kernel D, `--part confirm` only kernel B (50
+calls a time); `--part engines` (not in `all`) times
 the engine path end to end instead, as the checkout's chip_smoke.py runs
 it. Prints one JSON line: the card's name and power limit, the build
 seconds, and each kernel's ms (or each engine route's GB/s).
@@ -82,7 +96,7 @@ def main(argv=None) -> int:
     ap.add_argument("--db", default=None)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--part", choices=("all", "literal", "dfa", "nfa",
-                                       "engines"),
+                                       "engines", "confirm", "e2e"),
                     default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -119,18 +133,21 @@ def main(argv=None) -> int:
     _build.build()
     build_s = time.perf_counter() - t0
 
-    def ms(fn):
+    def ms_n(fn, reps):
         fn()
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(QUEUE_CYCLES)
         e0.record()
-        for _ in range(args.reps):
+        for _ in range(reps):
             fn()
         e1.record()
         torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / args.reps
+        return e0.elapsed_time(e1) / reps
+
+    def ms(fn):
+        return ms_n(fn, args.reps)
 
     def ms_or_error(fn):
         # a placement a checkout refuses for a DFA this large is reported
@@ -141,18 +158,21 @@ def main(argv=None) -> int:
 
     out = {}
 
+    def bench_db():
+        if args.db and os.path.exists(args.db):
+            with open(args.db, "rb") as f:
+                return ht.deserialize_database(f.read())
+        pats, ids = patterns(10_000)
+        db = ht.compile_multi(pats, ids=ids)
+        if args.db:
+            with open(args.db, "wb") as f:
+                f.write(ht.serialize_database(db))
+        return db
+
     def literal():
         """The filter-loop kernels and kernel 7 over 512 MiB; returns
         kernel 7's candidate count over the iid corpus."""
-        if args.db and os.path.exists(args.db):
-            with open(args.db, "rb") as f:
-                db = ht.deserialize_database(f.read())
-        else:
-            pats, ids = patterns(10_000)
-            db = ht.compile_multi(pats, ids=ids)
-            if args.db:
-                with open(args.db, "wb") as f:
-                    f.write(ht.serialize_database(db))
+        db = bench_db()
         lit = db.lit
         corpus = gen_corpus(512 << 20, 2, "iid")
         ct = T.corpus_tensor(corpus, dev)
@@ -345,7 +365,98 @@ def main(argv=None) -> int:
             out[f"engine path {route} {shape} GB/s"] = \
                 CS.ENGINE_BYTES / (sum(times) / len(times)) / 1e9
 
+    def confirm():
+        """Kernel B at the main path's inputs: 512 MiB iid and structured,
+        one StreamSet round's extents."""
+        db = bench_db()
+        ft, ctab = T.device_tables(db.lit, dev)
+        lib = T._confirm_lib()
+        # the kernel's entry alone: the tree's launch entry, the parent's
+        # only entry (which launched nothing but the kernel)
+        alone = getattr(lib, "hs_teddy_hash_confirm_launch", None) \
+            or lib.hs_teddy_hash_confirm
+        stream = torch.cuda.current_stream().cuda_stream
+        out["torch.zeros(1)"] = ms_n(lambda: torch.zeros(
+            1, dtype=torch.int32, device=dev), 50)
+        sdb = ht.deserialize_database(ht.serialize_database(db))
+        sdb.mode = ht.HS_MODE_STREAM
+        inputs = (
+            ("iid", lambda: T.corpus_tensor(gen_corpus(512 << 20, 2, "iid"),
+                                            dev)),
+            ("structured", lambda: T.corpus_tensor(
+                gen_corpus(512 << 20, 1, "structured"), dev)),
+            ("streamset round", lambda: torch.from_numpy(stream_extents(
+                CS.STREAMS, CS.STREAM_WRITE, history_required(sdb),
+                2)).to(dev)))
+        for tag, make in inputs:
+            corpus_t = make()
+            pos_c, cnt = T.filter_compact(corpus_t, ft, 256, use_classes=True)
+            cand = int(cnt.long().sum())
+            cap1 = T._p2(max(1, cand))
+            _meta1, pos = T.compact_combine(pos_c, cnt, 256, cap1)
+            _p, tot = T.hash_confirm_plain(corpus_t, pos, ctab, 1)
+            k = int(tot)
+            cap2 = T._p2(k + 1)
+            none = torch.full_like(pos, -1)
+            # the entry alone runs on a counter zeroed once: room for the
+            # pairs of every call (ms_n makes 51), so each writes them all
+            cap_t = 51 * max(k, 1)
+            pairs = torch.empty((cap_t, 2), dtype=torch.int32, device=dev)
+            total = torch.zeros(1, dtype=torch.int32, device=dev)
+
+            def launch(p):
+                rc = alone(corpus_t.data_ptr(), corpus_t.numel(),
+                           p.data_ptr(), p.numel(), ctab.meta.data_ptr(),
+                           len(ctab.groups), ctab.slots.data_ptr(),
+                           pairs.data_ptr(), cap_t, total.data_ptr(), stream)
+                if rc:
+                    raise SystemExit(f"kernel B launch failed: {rc}")
+
+            got, gt = T.hash_confirm(corpus_t, pos, ctab, cap2)
+            want, wt = T.hash_confirm_plain(corpus_t, pos, ctab, cap2)
+            keys = [torch.sort((x[:k, 1].long() << 20) | x[:k, 0]).values
+                    for x in (got, want)]
+            if int(gt) != k or not torch.equal(*keys):
+                raise SystemExit(f"kernel B {tag} != plain")
+            out[f"confirm {tag} inputs"] = {"candidates": cand, "cap1": cap1,
+                                            "pairs": k, "cap2": cap2}
+            out[f"confirm {tag} wrapper"] = ms_n(lambda: T.hash_confirm(
+                corpus_t, pos, ctab, cap2), 50)
+            out[f"confirm {tag} kernel"] = ms_n(lambda: launch(pos), 50)
+            torch.cuda.synchronize()
+            if int(total) != 51 * k:
+                raise SystemExit(f"kernel B {tag}: timing calls lost pairs")
+            out[f"confirm {tag} floor"] = ms_n(lambda: T.hash_confirm(
+                corpus_t, none, ctab, cap2), 50)
+            out[f"confirm {tag} floor kernel"] = ms_n(lambda: launch(none),
+                                                      50)
+            del corpus_t
+
+    def e2e():
+        """The literal main path (both corpora) and the streaming path,
+        end to end, as the checkout's chip_smoke.py runs them."""
+        db = bench_db()
+        for kind in ("structured", "iid"):
+            corpus, _o, _w, times, _f = CS.main_path(ht, T, db, kind)
+            out[f"literal {kind} GB/s"] = [CS.MAIN_BYTES / t / 1e9
+                                           for t in times]
+            out[f"literal {kind} stages"] = [
+                CS.breakdown(torch, T, db, corpus) for _ in range(3)]
+            del corpus
+        st = CS.streaming_path(torch, ht, T, db, CS.engine_dbs(ht),
+                               CS.gen_engine_corpus(CS.ENGINE_BYTES, 5))
+        vol = CS.STREAMS * CS.STREAM_WRITE * CS.STREAM_ROUNDS
+        out["streamset GB/s"] = [vol / p_[1] / 1e9 for p_ in st["passes"]]
+        out["streamset round stages"] = st["round_stages"]
+        _o, sc_times, _w = st["sc"]
+        out["scan_streams GB/s"] = [CS.SCAN_STREAMS * CS.STREAM_WRITE / t
+                                    / 1e9 for t in sc_times]
+
     total = literal() if args.part in ("all", "literal") else None
+    if args.part == "confirm":
+        confirm()
+    if args.part == "e2e":
+        e2e()
     if args.part in ("all", "dfa"):
         dfa()
     if args.part in ("all", "nfa"):
