@@ -87,6 +87,24 @@ Phases, in order; any failure exits non-zero:
    (records, finals, and finals equal to the states the streams carried
    out; its tables in shared and in global memory). Exact; their errors
    join the kernels' `max_abs_err`.
+   The multi-process mesh (3f), run between 3d and 3e: this script
+   starts two worker processes of itself (`--mesh-worker`), which join
+   one `torch.distributed` group through make_multihost_mesh (NCCL, one
+   card a process, where two cards are visible; gloo with both on card
+   0 where one is) and get the databases serialized and the corpora in
+   files. At 3d's width, each runs scan_batch(mesh=) over 1,024 x 512
+   KiB of both 512 MB corpora (the same blocks on every process, each
+   scanning its own shard) and sharded_teddy_count over them, and
+   sharded_scan_counts / sharded_scan_matches with the bounded DFA over
+   its own 8,192 of the 16,384 x 16 KiB rows. Every process's lists
+   must equal 3d's single-process scan_batch, its counts the candidate
+   total and the one-process DFA count, its gathered DFA buffers a
+   one-process sharded_scan_matches on a two-shard mesh, and each must
+   have launched kernel 7's count mode, kernel C's row mode and the
+   filter kernel of every family it ran. A worker that fails fails the
+   phase. `python3 chip_smoke.py --mesh-only` runs this phase alone,
+   with what it compares against made first (for a machine of several
+   cards).
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
    and per-kernel times at the main paths' shapes, beside their bounds
    and their plain versions' times (and torch.nonzero's beside the
@@ -1403,7 +1421,7 @@ def sharded_checks(torch, ht, T, db, edbs, sh) -> None:
         for name, (cnt, _s) in r["counts"].items():
             check(cnt == r["total"], f"{kind} {name}: sharded_teddy_count "
                   f"{cnt} != teddy_scan {r['total']}")
-        single = ht.scan_batch(db, blocks, device=DEVICE)
+        single = r["single"] = ht.scan_batch(db, blocks, device=DEVICE)
         for name, (lists, _t) in r["lists"].items():
             check(lists == single, f"{kind} {name}: sharded scan_batch != "
                   "unsharded")
@@ -1617,6 +1635,253 @@ def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
         rows=rows, ms=cuda_ms(torch, lambda: D.dfa_scan_batch(*shard), 5),
         **bound(5 * n_sh + tabs.nbytes + 8 * rows, 3 * n_sh))
     return out
+
+
+# --- the multi-process mesh (3f): one process per card on torch.distributed --
+
+MESH_PROCESSES = 2
+MESH_WAIT_S = 300  # the workers' limit; a worker still running fails 3f
+MESH_KINDS = ("structured", "iid")
+FAMILY_FILTERS = {"gated": "teddy_rescan_rows",
+                  "compact": "teddy_filter_compact",
+                  "kconfirm": "teddy_kconfirm", "dense": "teddy_filter_plane"}
+
+
+def mesh_rows(lists) -> np.ndarray:
+    """A batch's match lists as one int64 [n, 4] array of (block, id,
+    from, to) rows."""
+    rows = [(b, *m) for b, ms in enumerate(lists) for m in ms]
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 4)
+
+
+def mesh_worker(rank: int, port: int, folder: str, cap: int) -> int:
+    """One of phase 3f's processes: joins the group
+    (make_multihost_mesh, one shard a process), then runs the phase's
+    work over the inputs in `folder` as a user would: scan_batch(mesh=)
+    over 1,024 x 512 KiB of each 512 MiB corpus (one warm, FORCED_TIMED
+    timed) and sharded_teddy_count over it, both on the whole corpus;
+    sharded_scan_counts and sharded_scan_matches (capacity `cap`) with
+    the bounded DFA over this process's half of 16,384 x 16 KiB. Writes
+    its lists, the gathered DFA buffers and a JSON of times, families,
+    launch counts, its card and the group's backend into `folder`."""
+    import pathlib
+
+    import torch
+
+    import hyperscan_tpu_torch as ht
+    from hyperscan_tpu_torch import parallel as P
+    from hyperscan_tpu_torch.ops import teddy as T
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
+    d = pathlib.Path(folder)
+    mesh = P.make_multihost_mesh(coordinator_address=f"127.0.0.1:{port}",
+                                 num_processes=MESH_PROCESSES,
+                                 process_id=rank)
+    db = ht.deserialize_database((d / "lit.db").read_bytes())
+    eng = ht.deserialize_database((d / "dfa.db").read_bytes()).engines[0]
+    data, lengths = P.pad_batch_for_mesh(
+        engine_blocks(np.fromfile(d / "engine.bin", np.uint8), "blocks_16k"),
+        mesh, ENGINE_BLOCK)
+    half = data.shape[0] // MESH_PROCESSES
+    mine = slice(rank * half, (rank + 1) * half)
+    out = {"rank": rank, "backend": mesh.backend, "card": str(mesh.first),
+           "lit": {}}
+    corpora = {k: np.fromfile(d / f"{k}.bin", np.uint8) for k in MESH_KINDS}
+    torch.cuda.synchronize()
+    before = dict(F.family_state(db.lit).dispatches)
+    T.reset_launches()
+    for kind, corpus in corpora.items():
+        blocks = [corpus[i:i + SHARD_BLOCK]
+                  for i in range(0, len(corpus), SHARD_BLOCK)]
+        t0 = time.perf_counter()
+        cnt = P.sharded_teddy_count(corpus, db.lit.masks, mesh)
+        t1 = time.perf_counter()
+        warm = ht.scan_batch(db, blocks, mesh=mesh)
+        t2 = time.perf_counter()
+        times = []
+        for _ in range(FORCED_TIMED):
+            t0_ = time.perf_counter()
+            again = ht.scan_batch(db, blocks, mesh=mesh)
+            times.append(time.perf_counter() - t0_)
+            check(again == warm, f"3f process {rank} {kind}: repeat differs")
+        np.save(d / f"lists_{kind}_{rank}.npy", mesh_rows(warm))
+        out["lit"][kind] = {"count": cnt, "count_s": t1 - t0,
+                            "warm_s": t2 - t1, "times": times}
+    t0 = time.perf_counter()
+    cnt = P.sharded_scan_counts(eng, data[mine], lengths[mine], mesh)
+    t1 = time.perf_counter()
+    mt = P.sharded_scan_matches(eng, data[mine], lengths[mine], mesh,
+                                capacity=cap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["launches"] = dict(T.LAUNCHES)
+    out["families"] = ran_since(db.lit, before)
+    np.savez(d / f"dfa_{rank}.npz", *[x.cpu().numpy() for x in mt])
+    out["dfa"] = {"count": cnt, "rows": half, "count_s": t1 - t0,
+                  "matches_s": t2 - t1}
+    P.close_multihost_mesh()
+    (d / f"worker_{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def multiprocess_path(torch, ht, T, db, edb, corpora, ecorpus, singles
+                      ) -> dict:
+    """Phase 3f: the multi-process mesh at 3d's full width. Hands two
+    worker processes of this script (`--mesh-worker`) the databases
+    (serialized), the corpora and the DFA capacity through a temporary
+    folder, and waits for both. With two or more cards each process
+    takes its own card (NCCL); with one, both take card 0 (gloo, the
+    collectives staged on the host). Then every process's lists must
+    equal this process's single-process scan_batch (`singles[kind]
+    ["lists"]`), its sharded_teddy_count the candidate total
+    (`singles[kind]["total"]`), and its DFA count and gathered buffers a
+    one-process sharded_scan_counts / sharded_scan_matches on a mesh of
+    as many shards. A worker that fails or outlasts MESH_WAIT_S fails
+    the phase."""
+    import pathlib
+    import socket
+    import tempfile
+
+    from hyperscan_tpu_torch import parallel as P
+
+    eng = edb.engines[0]
+    cards = torch.cuda.device_count()
+    ref_mesh = P.Mesh([torch.device(DEVICE, r % cards)
+                       for r in range(MESH_PROCESSES)], ("shards",))
+    data, lengths = P.pad_batch_for_mesh(engine_blocks(ecorpus, "blocks_16k"),
+                                         ref_mesh, ENGINE_BLOCK)
+    want_n = P.sharded_scan_counts(eng, data, lengths, ref_mesh)
+    cap = T._p2(max(want_n, 1))
+    want_mt = [x.cpu().numpy() for x in P.sharded_scan_matches(
+        eng, data, lengths, ref_mesh, capacity=cap)]
+    del data, lengths
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3f_") as folder:
+        d = pathlib.Path(folder)
+        (d / "lit.db").write_bytes(ht.serialize_database(db))
+        (d / "dfa.db").write_bytes(ht.serialize_database(edb))
+        for kind in MESH_KINDS:
+            corpora[kind].tofile(d / f"{kind}.bin")
+        ecorpus.tofile(d / "engine.bin")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, __file__, "--mesh-worker",
+                                   str(r), str(port), folder, str(cap)])
+                 for r in range(MESH_PROCESSES)]
+        try:
+            rcs = [p.wait(timeout=MESH_WAIT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        check(rcs == [0] * MESH_PROCESSES, f"3f: worker exit codes {rcs}")
+        res = [json.loads((d / f"worker_{r}.json").read_text())
+               for r in range(MESH_PROCESSES)]
+        for r, w in enumerate(res):
+            for kind in MESH_KINDS:
+                got = np.load(d / f"lists_{kind}_{r}.npy")
+                check(np.array_equal(got, mesh_rows(singles[kind]["lists"])),
+                      f"3f process {r} {kind}: lists != single-process "
+                      "scan_batch")
+                check(w["lit"][kind]["count"] == singles[kind]["total"],
+                      f"3f process {r} {kind}: sharded_teddy_count "
+                      f"{w['lit'][kind]['count']} != "
+                      f"{singles[kind]['total']}")
+            check(w["dfa"]["count"] == want_n,
+                  f"3f process {r}: DFA count {w['dfa']['count']} != "
+                  f"{want_n}")
+            with np.load(d / f"dfa_{r}.npz") as z:
+                check(all(np.array_equal(z[f"arr_{i}"], want_mt[i])
+                          for i in range(5)),
+                      f"3f process {r}: gathered DFA buffers != one process")
+            for k in ("teddy_words_count", "dfa_scan_rows"):
+                check(w["launches"][k] > 0, f"3f process {r}: kernel {k} "
+                      "was not launched")
+            check(w["families"] and all(w["launches"][FAMILY_FILTERS[f]] > 0
+                                        for f in w["families"]),
+                  f"3f process {r}: families {w['families']} did not launch "
+                  "their filter kernels")
+    return {"workers": res, "wall_s": wall, "dfa_n": want_n,
+            "cards": cards}
+
+
+def log_multiprocess(mp: dict, card: str) -> None:
+    """Phase 3f's lines: the group, and each process's families, launch
+    counts and times."""
+    w0 = mp["workers"][0]
+    log(f"3f multi-process mesh: {MESH_PROCESSES} processes on "
+        f"{w0['backend']}, {mp['cards']} visible card(s), process cards "
+        f"{[w['card'] for w in mp['workers']]}; lists, counts and DFA "
+        f"buffers == single process; {mp['wall_s']:.1f} s wall (start-up "
+        f"included) [{card}]")
+    for w in mp["workers"]:
+        r = w["rank"]
+        log(f"3f process {r}: families {w['families']}; launches "
+            f"{ {k: v for k, v in w['launches'].items() if v} }")
+        for kind, t in w["lit"].items():
+            mean = sum(t["times"]) / len(t["times"])
+            log(f"3f process {r} {kind}: sharded_teddy_count {t['count']} in "
+                f"{t['count_s']:.3f} s; scan_batch(mesh=) over "
+                f"{MAIN_BYTES // SHARD_BLOCK} blocks: warm {t['warm_s']:.3f} "
+                f"s, timed scans {[round(x, 4) for x in t['times']]} s -> "
+                f"{MAIN_BYTES / mean / 1e9:.3f} GB/s end to end [{card}]")
+        t = w["dfa"]
+        nb = t["rows"] * ENGINE_BLOCK
+        log(f"3f process {r} DFA: {t['rows']} rows of its own, "
+            f"sharded_scan_counts {t['count']} in {t['count_s']:.3f} s, "
+            f"sharded_scan_matches in {t['matches_s']:.3f} s "
+            f"({nb / t['count_s'] / 1e9:.3f} / "
+            f"{nb / t['matches_s'] / 1e9:.3f} GB/s of its rows, upload "
+            f"included) [{card}]")
+
+
+def mesh_only() -> int:
+    """`--mesh-only`: phase 3f alone, with what it compares against made
+    here (build, the 10k ruleset, both 512 MiB corpora and their
+    single-process scan_batch, the bounded DFA) — for a machine of
+    several cards, where 3f runs on NCCL."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    import hyperscan_tpu_torch as ht
+    from hyperscan_tpu_torch.ops import _build
+    from hyperscan_tpu_torch.ops import teddy as T
+    from hyperscan_tpu_torch.ops import teddy_words as TW
+
+    card = nvidia_smi("name,power.limit")
+    log(f"card: {card}; {torch.cuda.device_count()} visible; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    pats, ids = patterns(10_000)
+    db = ht.compile_multi(pats, ids=ids)
+    edb = engine_dbs(ht)["bounded_dfa"][0]
+    corpora, singles = {}, {}
+    for kind in MESH_KINDS:
+        corpora[kind] = gen_corpus(MAIN_BYTES, 1, kind)
+        blocks = [corpora[kind][i:i + SHARD_BLOCK]
+                  for i in range(0, MAIN_BYTES, SHARD_BLOCK)]
+        total, _pos, _w = TW.teddy_scan(corpora[kind], db.lit.masks,
+                                        hint_obj=db.lit, device=DEVICE)
+        singles[kind] = {"lists": ht.scan_batch(db, blocks, device=DEVICE),
+                         "total": total}
+    mp = multiprocess_path(torch, ht, T, db, edb, corpora,
+                           gen_engine_corpus(ENGINE_BYTES, 5), singles)
+    log_multiprocess(mp, card)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 # --- kernel 4's stage modes (row 11) ------------------------------------------
@@ -2571,8 +2836,7 @@ def main() -> int:
     for k in ("teddy_words_count", "teddy_words_list", "dfa_scan_rows"):
         check(mlaunch[k] > 0, f"kernel {k} was not launched on the sharded "
               "path")
-    filters = {"gated": "teddy_rescan_rows", "compact": "teddy_filter_compact",
-               "kconfirm": "teddy_kconfirm", "dense": "teddy_filter_plane"}
+    filters = FAMILY_FILTERS
     check(sh["families"] and all(mlaunch[filters[f]] > 0
                                  for f in sh["families"]),
           f"the sharded literal path's families {sh['families']} did not "
@@ -2604,6 +2868,17 @@ def main() -> int:
             f"{t_c:.3f} s, sharded_scan_matches in {t_m:.3f} s "
             f"({ENGINE_BYTES / t_c / 1e9:.3f} / {ENGINE_BYTES / t_m / 1e9:.3f}"
             f" GB/s, upload included) [{card}]")
+
+    # phase 3f: the multi-process mesh at 3d's width, two processes
+    t3f = time.perf_counter()
+    mp = multiprocess_path(
+        torch, ht, T, db, edbs["bounded_dfa"][0],
+        {kind: run[0] for kind, run in runs.items()}, ecorpus,
+        {kind: {"lists": r["single"], "total": r["total"]}
+         for kind, (r, _b) in sh["lit"].items()})
+    log_multiprocess(mp, card)
+    log(f"phase 3f {time.perf_counter() - t3f:.1f} s")
+    del mp
 
     # phase 3e: streaming at full width
     t3e = time.perf_counter()
@@ -2864,4 +3139,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             int(sys.argv[5])))
+    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else main())

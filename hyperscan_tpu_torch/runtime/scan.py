@@ -227,8 +227,10 @@ def resolve_device(device) -> "torch.device":
 
 
 def mesh_device(mesh, device) -> "torch.device":
-    """The device a scan with `mesh` runs its unsharded half on: the
-    mesh's first. An explicit `device` other than that one raises."""
+    """The device a scan with `mesh` runs its unsharded half on: this
+    process's first device of the mesh (on a mesh of several processes,
+    each runs the unsharded half on its own card). An explicit `device`
+    other than that one raises."""
     import torch
 
     from ..parallel.sharded import _as_shard_mesh

@@ -71,9 +71,24 @@ def test_make_mesh_and_multihost():
             PP.make_mesh()
         with pytest.raises(RuntimeError):
             PP.make_multihost_mesh()
-    with pytest.raises(NotImplementedError):
-        PP.make_multihost_mesh(coordinator_address="localhost:1234",
-                               num_processes=2, process_id=0)
+    # the multi-process form's argument errors raise before any init
+    # (tests/test_torch_multihost.py runs two processes)
+    for kw in ({"coordinator_address": "localhost:1234"},
+               {"coordinator_address": "localhost:1234", "num_processes": 2},
+               {"num_processes": 2, "process_id": 0},
+               {"coordinator_address": "localhost:1234", "num_processes": 2,
+                "process_id": 2},
+               {"num_processes": 0}):
+        with pytest.raises(ValueError):
+            PP.make_multihost_mesh(device="cpu", **kw)
+    one = PP.make_multihost_mesh(device="cpu", n_local=3)
+    assert one.devices.size == 3 and one.local == [0, 1, 2]
+    assert not one.distributed and one.backend is None
+    # entries owned by another process are not this process's
+    owned = PP.Mesh(["cpu"] * 4, ("s",), ranks=[1, 1, 0, 0])
+    assert owned.local == [2, 3] and owned.first == torch.device("cpu")
+    with pytest.raises(ValueError):
+        PP.Mesh(["cpu"] * 2, ("s",), ranks=[1, 1])
 
 
 def test_pad_batch_equals_reference():
