@@ -105,6 +105,25 @@ Phases, in order; any failure exits non-zero:
    phase. `python3 chip_smoke.py --mesh-only` runs this phase alone,
    with what it compares against made first (for a machine of several
    cards).
+   SOM on the card (3g), run after 3e: the first 100 bench patterns
+   without shape 5 (84), SOM_LEFTMOST, through scan_batch over both 512
+   MB corpora (the literal route with reverse back-scan validators), and
+   the first 96 without shape 5 (80), SOM_LEFTMOST, in stream mode
+   through a StreamSet of 4,096 streams x 8 KiB writes (a warm and a
+   timed pass of 6 pipelined rounds). The planted region's matches are
+   exactly each plant's own SOM matches at its known start, the matches
+   of the first 64 MB equal the port's host route on the CPU, the first
+   64 streams of each round equal scan_streams of their writes on the
+   CPU host route, every predicted stream plant is found with its start,
+   and the filter kernel of every family that ran must have been
+   launched; the kernels of the family of the last SOM block scan (on
+   its corpus, uploaded again) and of the last SOM round (on its extent
+   tensor) equal their plain versions (exact; their errors join the
+   kernels' `max_abs_err`). Then the port's bench
+   (hyperscan_tpu_torch/tools/bench.py) at reduced depth: run_config
+   with the 100-pattern database over 64 MiB x 2 scans and run_streamset
+   with the 10k stream database at 1,024 streams x 6 rounds, each
+   asserting its plants.
 4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
    and per-kernel times at the main paths' shapes, beside their bounds
    and their plain versions' times (and torch.nonzero's beside the
@@ -133,8 +152,9 @@ Phases, in order; any failure exits non-zero:
 6. Chimera on the card: ch_scan over a 2 MiB buffer with plants, its
    prefilter literal-routed, equals ch_scan on the CPU, and a filter
    kernel launched.
-7. One JSON line listing every kernel, the card's name and power limit
-   as nvidia-smi reports them, and the final status line.
+7. One JSON line listing every kernel (with its launches on the main
+   path, on 3g's SOM path and in 3g's bench run), the card's name and
+   power limit as nvidia-smi reports them, and the final status line.
 
 Imports nothing of JAX nor of the JAX package.
 """
@@ -2017,28 +2037,31 @@ def stream_writes(extents, n_streams, hist, write) -> list:
 
 
 def streamset_pass(torch, F, SS, sdb, ext, hreq):
-    """One pass of the StreamSet: two synchronous rounds, then
-    STREAM_ROUNDS rounds pipelined: each round's extents uploaded and its
-    filter started, one confirm_fetch_many, the rounds finished in order.
-    The timed span is the pipelined rounds, uploads included. Returns the
-    per-round match lists, the seconds, the family each timed round
-    started with, the StreamSet and the last round's handle (it holds
-    that round's extent tensor)."""
-    ss = SS.open_streamset(sdb, STREAMS, device=DEVICE)
-    wl = np.full(STREAMS, STREAM_WRITE, np.int64)
+    """One pass of a StreamSet over the rounds of extents `ext` (round 0
+    the writes alone, the others `hreq` bytes of history + the write, of
+    STREAM_WRITE bytes a stream): two synchronous rounds, then the others
+    pipelined: each round's extents uploaded and its filter started, one
+    confirm_fetch_many, the rounds finished in order. The timed span is
+    the pipelined rounds, uploads included. Returns the per-round match
+    lists, the seconds, the family each timed round started with, the
+    StreamSet and the last round's handle (it holds that round's extent
+    tensor)."""
+    n_streams = ext[0].size // STREAM_WRITE
+    ss = SS.open_streamset(sdb, n_streams, device=DEVICE)
+    wl = np.full(n_streams, STREAM_WRITE, np.int64)
     out = []
     for r in (0, 1):
         h = SS.streamset_write_start(
             sdb, ss, ext_np=ext[r], ext_t=torch.from_numpy(ext[r]).to(DEVICE),
-            hlens=np.full(STREAMS, hreq if r else 0, np.int64),
+            hlens=np.full(n_streams, hreq if r else 0, np.int64),
             chunk_lens=wl)
         out.append(SS.streamset_write_finish(sdb, ss, h))
-    hl = np.full(STREAMS, hreq, np.int64)
+    hl = np.full(n_streams, hreq, np.int64)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [SS.streamset_write_start(
         sdb, ss, ext_np=ext[r], ext_t=torch.from_numpy(ext[r]).to(DEVICE),
-        hlens=hl, chunk_lens=wl) for r in range(2, 2 + STREAM_ROUNDS)]
+        hlens=hl, chunk_lens=wl) for r in range(2, len(ext))]
     gots = F.confirm_fetch_many([h.dev_handle for h in handles])
     for h, got in zip(handles, gots):
         out.append(SS.streamset_write_finish(sdb, ss, h, got=got))
@@ -2279,15 +2302,18 @@ def _arr_err(a, b) -> int:
     return int(np.abs(a - b).max()) if a.size else 0
 
 
-def streamset_round_checks(torch, T, lit, h, clock_hz):
-    """The kernels of the family that ran the last timed StreamSet round,
-    on that round's own extent tensor (16,384 stitched extents) at the
-    round's capacities, each against its plain version on the same bytes,
-    exact; the hash confirm's pair total also equals the round's own (the
-    same function of the same inputs). Returns the max abs
-    error of each kernel, keyed as phase 2c's (and "compact", "confirm"
-    for kernels A and B), and, for the gated family, the rescan's times
-    there (`rescan_times`; else {})."""
+def path_kernel_checks(torch, T, lit, h, clock_hz, what: str):
+    """The kernels of the family of a literal dispatch `h` (a
+    teddy_families.ConfirmHandle: the last timed StreamSet round of 3e,
+    on its own extent tensor of 16,384 stitched extents; in 3g the last
+    SOM block scan and SOM round), on its corpus tensor at its
+    capacities, each against its plain version on the same bytes, exact;
+    the hash confirm's pair total also equals the dispatch's own (the
+    same function of the same inputs). `what` names the dispatch in the
+    log and the failures. Returns the max abs error of each kernel, keyed
+    as phase 2c's (and "compact", "confirm" for kernels A and B), and,
+    for the gated family, the rescan's times there (`rescan_times`; else
+    {})."""
     from hyperscan_tpu_torch.ops import extract as X
     from hyperscan_tpu_torch.ops import teddy_gate as G
     from hyperscan_tpu_torch.ops import teddy_kconfirm as K
@@ -2305,9 +2331,9 @@ def streamset_round_checks(torch, T, lit, h, clock_hz):
             int((ok_[0] - op_[0]).abs().max()),
             cell_err(torch, ok_[2], ok_[1], op_[2], op_[1], K.CAPC2),
             cell_err(torch, ok_[3], ok_[1], op_[3], op_[1], K.CAPC2))
-        check(errs["kconfirm"] == 0, "StreamSet round: kernel 4 != plain")
+        check(errs["kconfirm"] == 0, f"{what}: kernel 4 != plain")
         check(int(h.meta[2]) == int(op_[1].sum()),
-              "StreamSet round: its match total != the plain version's")
+              f"{what}: its match total != the plain version's")
         return errs, times
     if h.family == "dense":
         plane_k = T.filter_plane(corpus, ft, use_classes=classes)
@@ -2335,14 +2361,14 @@ def streamset_round_checks(torch, T, lit, h, clock_hz):
         total = int(ck.sum())
         _m, pos = T.compact_combine(pk, ck, capc, h.caps[0])
     for k, e in errs.items():
-        check(e == 0, f"StreamSet round ({h.family}): kernel {k} != plain "
+        check(e == 0, f"{what} ({h.family}): kernel {k} != plain "
               "version")
     probes = sum(g[4] for g in ct.groups)
     (_p, tot), errs["confirm"] = compare_confirm(
         torch, T, corpus, pos, ct, T._p2(probes * pos.numel() + 1))
-    check(int(h.meta[2]) == int(tot), f"StreamSet round: its pair total "
+    check(int(h.meta[2]) == int(tot), f"{what}: its pair total "
           f"{int(h.meta[2])} != the plain version's {int(tot)}")
-    log(f"StreamSet round kernels ({h.family}) on its {n} B of extents: "
+    log(f"{what} kernels ({h.family}) on its {n} B: "
         f"{total} candidates, {int(tot)} hash-matched pairs: exact")
     return errs, times
 
@@ -2394,6 +2420,167 @@ def stream_dfa_checks(torch, st) -> int:
         f"carried states, {n_rec} records (shared and global tables), "
         "finals == the streams' carried states: exact")
     return err
+
+
+# --- SOM on the card, and the bench at reduced depth (3g) --------------------
+
+SOM_PATTERNS = 100  # SOM block ruleset: the first 100 bench patterns ...
+SOM_STREAM_PATTERNS = 96  # ... and the SOM StreamSet's first 96, both
+# without shape 5 (bench.py:391-393, :376-383), SOM_LEFTMOST
+SOM_TIMED = 2  # timed SOM block scans a corpus kind, after a warm one
+SOM_STREAMS = 4096  # the SOM StreamSet: 4,096 streams x 8 KiB, 6 rounds
+SOM_ROUNDS = 6
+BENCH_MB = 64  # the bench at reduced depth: run_config at 64 MiB, 2 scans
+BENCH_ITERS = 2
+BENCH_STREAMS = 1024  # and run_streamset at 1,024 streams, 6 rounds
+BENCH_ROUNDS = 6
+
+
+def som_path(torch, ht, T, corpora) -> dict:
+    """Phase 3g's driving, with the launch counts set to 0 just before it
+    and read just after: the SOM block ruleset through scan_batch over
+    each 512 MiB corpus of `corpora` (a warm scan, then SOM_TIMED timed
+    ones), then the SOM StreamSet (a warm and a timed pass of SOM_ROUNDS
+    pipelined rounds)."""
+    import gc
+
+    from hyperscan_tpu_torch.ops import teddy_families as F
+    from hyperscan_tpu_torch.runtime import streamset as SS
+    from hyperscan_tpu_torch.runtime.stream import history_required
+    from hyperscan_tpu_torch.tools.bench import HOST_LIMIT, bench_db
+    from hyperscan_tpu_torch.tools.benchdata import stream_extents
+
+    som = ht.HS_FLAG_SOM_LEFTMOST
+    t0 = time.perf_counter()
+    bdb = bench_db(SOM_PATTERNS, som, (5,))
+    check(bdb.lit is not None and not bdb.engines
+          and len(bdb.lit.rev_validators) == len(bdb.patterns),
+          "the SOM block ruleset must be literal-routed, a reverse "
+          "validator a pattern")
+    sdb = bench_db(SOM_STREAM_PATTERNS, som, (5,), ht.HS_MODE_STREAM,
+                   HOST_LIMIT)
+    hreq = history_required(sdb)
+    ext = [stream_extents(SOM_STREAMS, STREAM_WRITE, hreq if r else 0, r)
+           for r in range(2 + SOM_ROUNDS)]
+    setup_s = time.perf_counter() - t0
+    gc.collect()
+    gc.freeze()
+    T.reset_launches()
+    try:
+        block = {}
+        for kind, corpus in corpora.items():
+            before = dict(F.family_state(bdb.lit).dispatches)
+            t0 = time.perf_counter()
+            out = ht.scan_batch(bdb, [corpus], device=DEVICE)[0]
+            warm_s = time.perf_counter() - t0
+            fams, times = [ran_since(bdb.lit, before)], []
+            for _ in range(SOM_TIMED):
+                before = dict(F.family_state(bdb.lit).dispatches)
+                t0 = time.perf_counter()
+                again = ht.scan_batch(bdb, [corpus], device=DEVICE)[0]
+                times.append(time.perf_counter() - t0)
+                fams.append(ran_since(bdb.lit, before))
+                check(again == out, f"SOM block {kind}: a repeated scan "
+                      "differs")
+            block[kind] = (out, warm_s, times, fams)
+        before = dict(F.family_state(sdb.lit).dispatches)
+        passes = [streamset_pass(torch, F, SS, sdb, ext, hreq)
+                  for _ in range(2)]
+        launches = dict(T.LAUNCHES)
+        sfams = ran_since(sdb.lit, before)
+    finally:
+        gc.unfreeze()
+    return {"bdb": bdb, "sdb": sdb, "hreq": hreq, "ext": ext,
+            "setup_s": setup_s, "block": block, "passes": passes,
+            "stream_families": sfams, "launches": launches}
+
+
+def som_checks(ht, T, sp, corpora) -> None:
+    """Phase 3g's checks, all exact. SOM block, each corpus: the matches
+    in the planted region are exactly each plant's own SOM matches (the
+    plant scanned alone on the CPU) moved to its known start, and at least
+    one plant matches; the matches ending in the first 64 MiB equal the
+    port's host route on the CPU (a Grey whose host_scan_limit covers the
+    prefix). SOM StreamSet: both passes agree; each round's matches of
+    the first CHECK_STREAMS streams equal scan_streams of those streams'
+    writes on the CPU host route; every plant benchdata.stream_plants
+    predicts is found, its start reported."""
+    from hyperscan_tpu_torch.grey import Grey
+    from hyperscan_tpu_torch.tools.bench import bench_db
+    from hyperscan_tpu_torch.tools.benchdata import (STREAM_PLANT,
+                                                     plant_starts,
+                                                     stream_plants)
+
+    bdb, sdb, hreq = sp["bdb"], sp["sdb"], sp["hreq"]
+    alone = {p: ht.scan(bdb, p, device="cpu") for p in set(PLANTS)}
+    want = {(i, at + f, at + t) for at, p in plant_starts()
+            for (i, f, t) in alone[p]}
+    check(want, "no plant matches the SOM ruleset")
+    edge = PLANT_AT + 4096
+    hdb = bench_db(SOM_PATTERNS, ht.HS_FLAG_SOM_LEFTMOST, (5,),
+                   grey=Grey(host_scan_limit=PREFIX_BYTES))
+    for kind, (out, _w, _t, _f) in sp["block"].items():
+        got = {m for m in out if m[2] <= edge}
+        check(got == want, f"SOM block {kind}: planted-region matches "
+              f"{sorted(got)[:4]} != the plants' own at their starts "
+              f"{sorted(want)[:4]}")
+        host = ht.scan(hdb, corpora[kind][:PREFIX_BYTES].tobytes(),
+                       device="cpu")
+        dev = [m for m in out if m[2] <= PREFIX_BYTES]
+        check(sorted(dev) == sorted(host), f"SOM block {kind}: the 64 MiB "
+              f"prefix's {len(dev)} matches != the host route's {len(host)}")
+        log(f"SOM block {kind}: {len(out)} matches; {len(want)} planted "
+            f"matches at their starts; 64 MiB prefix == host route "
+            f"({len(host)} matches)")
+    warm, timed = sp["passes"][0][0], sp["passes"][1][0]
+    check(timed == warm, "SOM StreamSet: the timed pass differs from the "
+          "warm pass")
+    writes = [stream_writes(e, CHECK_STREAMS, hreq if r else 0,
+                            STREAM_WRITE) for r, e in enumerate(sp["ext"])]
+    streams = [ht.open_stream(sdb, device="cpu")
+               for _ in range(CHECK_STREAMS)]
+    with host_limit(sdb, 1 << 30):
+        host = [ht.scan_streams(sdb, streams, w) for w in writes]
+    for r, (g, h) in enumerate(zip(timed, host)):
+        check([sorted(x) for x in g[:CHECK_STREAMS]]
+              == [sorted(x) for x in h], f"SOM StreamSet round {r}: the "
+              f"first {CHECK_STREAMS} streams != the host route")
+    plants = stream_plants(SOM_STREAMS, len(sp["ext"]) * STREAM_WRITE)
+    found = {(i, m[2]) for rnd in timed for i, ms in enumerate(rnd)
+             for m in ms if m[0] == 0}
+    starts_ok = all(m[1] == m[2] - len(STREAM_PLANT) + 1 for rnd in timed
+                    for ms in rnd for m in ms if m[0] == 0)
+    check(plants and plants <= found and starts_ok, f"SOM StreamSet: "
+          f"{len(plants - found)} of {len(plants)} planted matches missing "
+          f"or their starts wrong")
+    log(f"SOM StreamSet: the first {CHECK_STREAMS} streams == host route "
+        f"round by round ({sum(len(m) for rnd in host for m in rnd)} "
+        f"matches), {len(plants)} planted matches at their starts")
+
+
+def bench_reduced(T, db100, sdb) -> dict:
+    """The port's bench (hyperscan_tpu_torch/tools/bench.py) at reduced
+    depth, with its own launch counts: run_config with the 100-pattern
+    database at BENCH_MB MiB, BENCH_ITERS scans, and run_streamset with
+    the 10k stream database at BENCH_STREAMS streams x BENCH_ROUNDS
+    rounds. Both assert their plants (run_streamset every plant
+    benchdata.stream_plants predicts); the block scans' matches must
+    number at least the plants too."""
+    from hyperscan_tpu_torch.tools import bench as B
+
+    T.reset_launches()
+    t0 = time.perf_counter()
+    g, m, _c = B.run_config(100, DEVICE, corpus_mb=BENCH_MB,
+                            iters=BENCH_ITERS, db=db100)
+    gs, nm = B.run_streamset(sdb, BENCH_STREAMS, BENCH_ROUNDS, DEVICE)
+    launches = dict(T.LAUNCHES)
+    check(m >= BENCH_ITERS * len(PLANTS),
+          f"the bench at reduced depth: {m} block matches")
+    check(any(launches[k] > 0 for k in FAMILY_FILTERS.values()),
+          "the bench at reduced depth launched no filter kernel")
+    return {"block_gb_s": g, "block_matches": m, "stream_gb_s": gs,
+            "stream_matches": nm, "launches": launches,
+            "s": time.perf_counter() - t0}
 
 
 # --- the main path -----------------------------------------------------------
@@ -2894,16 +3081,23 @@ def main() -> int:
           "streaming path")
     sn = streaming_checks(ht, db, edbs, st)
     # the path's kernels at the path's inputs, against their plain versions
-    rerr, rtimes = streamset_round_checks(
-        torch, T, st["sdb"].lit, st["passes"][-1][4].dev_handle, clock_hz)
+    rerr, rtimes = path_kernel_checks(
+        torch, T, st["sdb"].lit, st["passes"][-1][4].dev_handle, clock_hz,
+        "StreamSet round")
     if rtimes:
         log(f"StreamSet round rescan times [{card}]: "
             + json.dumps(rtimes, sort_keys=True))
     err_c = max(err_c, stream_dfa_checks(torch, st))
-    err_a = max(err_a, rerr.pop("compact", 0))
-    err_b = max(err_b, rerr.pop("confirm"))
-    for k, e in rerr.items():
-        ferr[k] = max(ferr[k], e)
+
+    def merge(errs):
+        # a path kernel check's errors into the kernels' max_abs_err
+        nonlocal err_a, err_b
+        err_a = max(err_a, errs.pop("compact", 0))
+        err_b = max(err_b, errs.pop("confirm", 0))
+        for k, e in errs.items():
+            ferr[k] = max(ferr[k], e)
+
+    merge(rerr)
     hreq = st["hreq"]
     vol = STREAMS * STREAM_WRITE * STREAM_ROUNDS
     log(f"streaming set-up {st['setup_s']:.1f} s (the stream database, "
@@ -2939,7 +3133,65 @@ def main() -> int:
         f" == unsharded on {list(st['mesh'])}, planted (StreamSet, "
         f"scan_streams) {sn['plants']} found; phase 3e "
         f"{time.perf_counter() - t3e:.1f} s")
+    sdb = st["sdb"]
     del st
+
+    # phase 3g: SOM on the card at full width (the SOM block ruleset over
+    # both 512 MiB corpora, the SOM StreamSet), then the bench at reduced
+    # depth
+    t3g = time.perf_counter()
+    corpora = {kind: run[0] for kind, run in runs.items()}
+    sp = som_path(torch, ht, T, corpora)
+    glaunch = sp["launches"]
+    bfams = {kind: b[3] for kind, b in sp["block"].items()}
+    som_fams = {f for fl in bfams.values() for fs in fl for f in fs}
+    som_fams |= set(sp["stream_families"])
+    log(f"SOM-path launches: {glaunch}; families per scan (warm first) "
+        f"{bfams}, StreamSet {sp['stream_families']}")
+    check(som_fams and all(glaunch[filters[f]] > 0 for f in som_fams),
+          f"the SOM path's families {sorted(som_fams)} did not launch their "
+          "filter kernels")
+    som_checks(ht, T, sp, corpora)
+    # the path's kernels at the path's inputs: the last SOM block scan's
+    # corpus (uploaded again, its family dispatched at the learned
+    # capacities) and the last SOM round's extent tensor
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
+    last = list(corpora)[-1]
+    h = F.confirm_start(T.corpus_tensor(corpora[last], DEVICE),
+                        sp["bdb"].lit, MAIN_BYTES)
+    check([h.family] == bfams[last][-1], f"SOM block {last}: dispatch "
+          f"family {h.family} != the last scan's {bfams[last][-1]}")
+    merge(path_kernel_checks(torch, T, sp["bdb"].lit, h, clock_hz,
+                             f"SOM block scan ({last})")[0])
+    del h
+    merge(path_kernel_checks(torch, T, sp["sdb"].lit,
+                             sp["passes"][-1][4].dev_handle, clock_hz,
+                             "SOM StreamSet round")[0])
+    for kind, (out, warm_s, times, fams_) in sp["block"].items():
+        log(f"SOM block {kind} ({len(sp['bdb'].patterns)} patterns, "
+            f"SOM_LEFTMOST): scan_batch {len(out)} matches; warm scan "
+            f"{warm_s:.3f} s; timed scans {[round(t, 4) for t in times]} s "
+            f"-> {MAIN_BYTES / (sum(times) / len(times)) / 1e9:.3f} GB/s end "
+            f"to end (upload inside the timed loop), families {fams_} "
+            f"[{card}]")
+    vol = SOM_STREAMS * STREAM_WRITE * SOM_ROUNDS
+    for k, (out, took, fams_, _ss, _h) in enumerate(sp["passes"]):
+        log(f"SOM StreamSet {SOM_STREAMS} x {STREAM_WRITE} B "
+            f"({len(sp['sdb'].patterns)} patterns, history {sp['hreq']} B),"
+            f" {'warm' if k == 0 else 'timed'} pass: {SOM_ROUNDS} pipelined "
+            f"rounds in {took:.4f} s -> {vol / took / 1e9:.3f} GB/s of new "
+            f"bytes, families per round {fams_}, "
+            f"{sum(len(m) for rnd in out[2:] for m in rnd)} matches [{card}]")
+    del sp
+    br = bench_reduced(T, dbs[100], sdb)
+    log(f"bench at reduced depth: run_config(100, {BENCH_MB} MiB x "
+        f"{BENCH_ITERS}) {br['block_gb_s']:.3f} GB/s, {br['block_matches']} "
+        f"matches; run_streamset({BENCH_STREAMS} streams x {BENCH_ROUNDS} "
+        f"rounds) {br['stream_gb_s']:.3f} GB/s, {br['stream_matches']} "
+        f"matches; launches {br['launches']}; {br['s']:.1f} s [{card}]")
+    del sdb
+    log(f"phase 3g {time.perf_counter() - t3g:.1f} s")
 
     # phase 4: per-kernel times at the main path's shapes
     kt = {}
@@ -3130,6 +3382,11 @@ def main() -> int:
             "ms": pms[f"stage {s_}"],
             "plain_ms": probe["plain_ms"][f"stage {s_}"],
             **probe["bounds"][f"stage {s_}"]} for s_ in (0, 1, 2)}})
+    # the launches of 3g's SOM path and of its bench run, beside the main
+    # path's
+    for k in kernels:
+        k["som_launches"] = glaunch.get(k["name"], 0)
+        k["bench_launches"] = br["launches"].get(k["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

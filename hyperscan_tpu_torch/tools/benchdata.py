@@ -5,8 +5,8 @@ corpora of printable bytes made from a formula.
 
 Also kernel D's wide bit-NFA engines and the plant of the 45-class one.
 
-Used by chip_smoke.py, the stage probe (tools/kconf_probe.py) and the
-port's kernel tests.
+Used by the port's bench (tools/bench.py), chip_smoke.py, the stage probe
+(tools/kconf_probe.py) and the port's kernel tests.
 """
 
 from __future__ import annotations
@@ -22,11 +22,16 @@ PLANTS = [b"attack0 ", b"payload16y99z!", b"x12GET /abc ", b"q8hdeadbeef ",
 PLANT_AT = 128
 
 
-def patterns(n: int):
-    """n patterns and their ids (bench.py:52-90)."""
+def patterns(n: int, drop_shapes=()):
+    """The first n patterns and their ids (bench.py:52-90), without those
+    of the shapes (id % 6) in `drop_shapes` (bench.py:156-159: the SOM
+    configurations drop shape 5, whose general-infix chains route to SOM
+    engines under SOM_LEFTMOST)."""
     pats, ids = [], []
     for i in range(n):
         k = i % 6
+        if k in drop_shapes:
+            continue
         w = WORDS[i % len(WORDS)]
         if k == 0:
             pats.append(w + str(i))
@@ -71,14 +76,23 @@ def plant_many_class(data, start: int, every: int):
     return out.tobytes() if isinstance(data, (bytes, bytearray)) else out
 
 
+def plant_starts() -> list:
+    """(offset in the corpus, plant) of each of the 36 plants: every plant
+    of PLANTS four times, 97 spaces apart, from 16 bytes into the region."""
+    out, off = [], PLANT_AT + 16
+    for k in range(len(PLANTS) * 4):
+        p = PLANTS[k % len(PLANTS)]
+        out.append((off, p))
+        off += len(p) + 97
+    return out
+
+
 def plant_region() -> np.ndarray:
     """4 KiB holding every planted match, spliced at offset 128."""
     region = np.full(4096, ord(" "), dtype=np.uint8)
-    off = 16
-    for k in range(len(PLANTS) * 4):
-        p = PLANTS[k % len(PLANTS)]
+    for off, p in plant_starts():
+        off -= PLANT_AT
         region[off:off + len(p)] = np.frombuffer(p, np.uint8)
-        off += len(p) + 97
     return region
 
 
@@ -143,3 +157,28 @@ def stream_plants(n_streams: int, n_bytes: int) -> set:
             if t + len(STREAM_PLANT) <= n_bytes:
                 out.add((si, t + len(STREAM_PLANT) - 1))
     return out
+
+
+# --- the host-path streams of bench.py:280-344 ---------------------------------
+
+HOST_STREAMS = 16
+HOST_WRITE = 8192
+
+
+def host_stream_writes(seed: int, every: int, rounds: int) -> list:
+    """`rounds` rounds of HOST_STREAMS writes of HOST_WRITE random
+    printable bytes from default_rng(seed), with `attack0 ` at offset 100
+    of stream s's write in round r where (r + s) % every == 0 (bench.py:
+    296-305 with seed 3 and every 4, :322-331 with seed 7 and every 5). The
+    first k rounds do not depend on `rounds`."""
+    rng = np.random.default_rng(seed)
+    writes = []
+    for r in range(rounds):
+        row = []
+        for s in range(HOST_STREAMS):
+            c = (32 + rng.integers(0, 95, size=HOST_WRITE)).astype(np.uint8)
+            if (r + s) % every == 0:
+                c[100:108] = np.frombuffer(STREAM_PLANT, np.uint8)
+            row.append(c.tobytes())
+        writes.append(row)
+    return writes

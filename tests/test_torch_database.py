@@ -94,8 +94,12 @@ def test_database_info_reports_torch_target():
 
 
 def _port_files():
+    """The port's package, its chip smoke test, its root launchers
+    (tools_torch_*.py) and its examples."""
     files = sorted((ROOT / "hyperscan_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + [ROOT / "chip_smoke.py"]
+            + sorted(ROOT.glob("tools_torch_*.py"))
+            + sorted((ROOT / "examples" / "torch").glob("*.py")))
 
 
 def _imported_roots(path: pathlib.Path):
@@ -111,7 +115,12 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_imports_no_jax_nor_reference_package():
     files = _port_files()
-    assert (ROOT / "chip_smoke.py") in files and len(files) > 20
+    assert len(files) > 20
+    for f in ("chip_smoke.py", "tools_torch_bench.py",
+              "tools_torch_diff_device_host.py",
+              "examples/torch/simplegrep.py",
+              "hyperscan_tpu_torch/tools/bench.py"):
+        assert ROOT / f in files, f
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "hyperscan_tpu"}, (f, roots)

@@ -8,11 +8,13 @@ seeded sample of conformance/signatures.txt, on seeded corpora; the
 fuzz grammar must give the reference's patterns from a seed. The port's
 collider and fuzz rounds run with --device cpu: their databases are
 compiled with `Grey(host_scan_limit=0)`, so every scan takes the device
-branch (the corpus upload is counted) and the kernels' plain versions.
+branch (the corpus upload is counted) and the kernels' plain versions;
+so does tools_torch_collider.py, which times the collider's calls.
 hsdump must print the reference's text, apart from its `Info:` line,
 which names the platform and the target device.
 """
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -149,6 +151,24 @@ def test_hscollider_consistent_on_device_branch(patfile, capsys, uploads):
     assert uploads, "no scan took the device branch"
 
 
+def test_timed_collider_run(patfile, capsys):
+    """tools_torch_collider.py: the collider's result and its time by
+    bucket; the collider's module is left as it was."""
+    import tools_torch_collider
+
+    hs_before = hscollider.hs
+    assert tools_torch_collider.main(
+        [patfile, "--seed", "3", "--device", "cpu", "--every", "0"]) == 0
+    out = capsys.readouterr().out
+    assert "all consistent" in out and "progress [cpu]" in out
+    done = [l for l in out.splitlines() if "done rc=0 [cpu]" in l]
+    buckets = json.loads(done[0].split("[cpu] ", 1)[1])
+    assert buckets["corpora"][0] == 8 and buckets["compile_on_device"][0] > 3
+    assert buckets["scan"][0] > 0 and buckets["ast_match_ends"][0] > 0
+    assert hscollider.hs is hs_before
+    assert hscollider.compile_on_device.__name__ == "compile_on_device"
+
+
 def test_tools_refuse_a_missing_card(patfile):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -180,7 +200,9 @@ def test_tools_and_chimera_import_without_jax():
             " hyperscan_tpu_torch.tools.hscollider,"
             " hyperscan_tpu_torch.tools.fuzz,"
             " hyperscan_tpu_torch.tools.hsdump;"
-            "import tools_torch_kernel_ab, tools_torch_kernel_variants")
+            "import tools_torch_kernel_ab, tools_torch_kernel_variants,"
+            " tools_torch_bench, tools_torch_diff_device_host,"
+            " tools_torch_collider, hyperscan_tpu_torch.tools.bench")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
