@@ -152,16 +152,38 @@ Phases, in order; any failure exits non-zero:
 6. Chimera on the card: ch_scan over a 2 MiB buffer with plants, its
    prefilter literal-routed, equals ch_scan on the CPU, and a filter
    kernel launched.
-7. One JSON line listing every kernel (with its launches on the main
-   path, on 3g's SOM path and in 3g's bench run), the card's name and
-   power limit as nvidia-smi reports them, and the final status line.
+7. The feature surface at full width (hyperscan_tpu_torch/tools/
+   features.py): one small database per feature class of the reference's
+   tests (logical combinations with QUIET sub-expressions, min_offset /
+   max_offset / min_length, SINGLEMATCH, the anchored families, edit and
+   Hamming distance, UTF-8, UTF-8|UCP, bit-NFA blow-ups, ALLOWEMPTY
+   through scan_block_ranges), each over a 256 MiB corpus made on the
+   host from a seed with its plant every ~64 KiB: scan_batch over 16
+   blocks of 16 MiB (the ranges database: scan_block_ranges and
+   scan_count over the whole corpus) gives in every block exactly the
+   matches its plants give under the feature's rules, the first 16 MiB
+   equal the port's host route, each kernel the database ran equals
+   its plain version at the path's input (the literal family's over the
+   scanned corpus, kernels C and D over the last block; these launches
+   not counted), the database serialized and loaded back scans the
+   same; the
+   combination, anchored and UTF-8 databases also in stream mode through
+   a StreamSet of 4,096 streams x 8 KiB x 6 rounds, whose first 64
+   streams equal scan_streams on the host route and whose every stream
+   reports the purely negative combination at close. Dropping each
+   database gives back the card's memory (torch.cuda.memory_allocated
+   within 512 bytes of where it stood before it was built); kernels A, B,
+   C and D must have been launched in the phase.
+8. One JSON line listing every kernel (with its launches on the main
+   path, on 3g's SOM path, in 3g's bench run and in phase 7), the card's
+   name and power limit as nvidia-smi reports them, and the final status
+   line.
 
 Imports nothing of JAX nor of the JAX package.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import subprocess
 import sys
@@ -196,6 +218,7 @@ def check(cond: bool, msg: str) -> None:
 
 from hyperscan_tpu_torch.tools.benchdata import (  # noqa: E402
     NFA_ENGINES, PLANT_AT, PLANTS, gen_corpus, patterns, plant_many_class)
+from hyperscan_tpu_torch.tools.features import host_limit  # noqa: E402
 
 
 # --- card queries and timing -------------------------------------------------
@@ -2018,17 +2041,6 @@ ENGINE_ROUNDS = 8
 CHECK_STREAMS = 64  # streams held against the host path and block scans
 
 
-@contextlib.contextmanager
-def host_limit(db, limit: int):
-    """Within the block, `db` scans on the host up to `limit` bytes a
-    call (the port's host path for a differential)."""
-    old, db.host_scan_limit = db.host_scan_limit, limit
-    try:
-        yield
-    finally:
-        db.host_scan_limit = old
-
-
 def stream_writes(extents, n_streams, hist, write) -> list:
     """Each stream's write of one round of `extents`."""
     ext_len = hist + write
@@ -2903,6 +2915,143 @@ def chimera_path(T) -> dict:
             "launches": launches}
 
 
+# --- phase 7: the feature surface on the card -------------------------------
+
+FEATURE_BYTES = 256 * MB
+FEATURE_BLOCK = 16 * MB  # scan_batch blocks, and the host-route prefix
+FEATURE_SPACING = 65_537  # a plant every ~64 KiB: ~4,096 a database
+FEATURE_SEED = 13
+FEATURE_STREAMS = 4096  # the feature StreamSets: 4,096 x 8 KiB x 6 rounds
+FEATURE_ROUNDS = 6
+FEATURE_KERNELS = ("teddy_filter_compact", "teddy_hash_confirm", "dfa_scan",
+                   "nfa_layered")  # kernels A, B, C and D
+
+
+def feature_kernel_checks(torch, T, clock_hz, name: str):
+    """Phase 7's kernel checks for feature `name`, as run_feature's
+    `kernel_checks` hook: after the database's scan, the literal
+    family's kernels at the path's input (the scanned corpus dispatched
+    again at the learned capacities, as 3g does) through
+    path_kernel_checks, and each engine's kernel on the last block of
+    `block` bytes against its plain version, as phase 2b does: kernel C
+    for a DFA (chunk-halo or speculative shape, as the path picks) and
+    for the speculative core of a cyclic NFA, kernel D for a
+    device-eligible bit-NFA. The launches of these checks are taken back
+    out of the counts. Returns the max abs error of each kernel, keyed
+    as path_kernel_checks's, and "dfa_scan" / "nfa_layered"."""
+    from hyperscan_tpu_torch.database import (MAX_HALO_DEPTH, DfaEngine,
+                                              NfaEngine)
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import nfa_kernel as NK
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
+    def held(db, corpus, block) -> dict:
+        counts = dict(T.LAUNCHES)
+        errs = {}
+        if db.lit is not None:
+            ran = {k for k, v in F.family_state(db.lit).dispatches.items()
+                   if v}
+            h = F.confirm_start(T.corpus_tensor(corpus, DEVICE), db.lit,
+                                corpus.size)
+            check(h.family in ran, f"feature {name}: dispatch family "
+                  f"{h.family} is not one the scan ran ({sorted(ran)})")
+            errs, _t = path_kernel_checks(torch, T, db.lit, h, clock_hz,
+                                          f"feature {name}")
+            del h
+        last = corpus[-block:]
+        for eng in db.engines:
+            if isinstance(eng, NfaEngine) and NK.nfa_device_eligible(eng):
+                bs, be, ba, _ne = NK.block_bounds(
+                    np.zeros(1, np.int64), np.array([block]),
+                    np.ones(1, bool), DEVICE)
+                (_r, tot, _e), e = compare_nfa(
+                    torch, NK, torch.from_numpy(last).to(DEVICE),
+                    NK.device_plan(eng, DEVICE), bs, be, ba)
+                errs["nfa_layered"] = max(errs.get("nfa_layered", 0), e)
+                log(f"feature {name} kernel D on its last {block} B: "
+                    f"{int(tot)} records: exact")
+                continue
+            if isinstance(eng, NfaEngine) and eng.spec_dfa is not None:
+                d, H, CS = eng.spec_dfa, 0, DK.SPEC_CS
+            elif isinstance(eng, DfaEngine):
+                d = eng
+                bounded = (eng.max_depth is not None
+                           and eng.max_depth <= MAX_HALO_DEPTH)
+                H, CS = DK.chunk_shape(eng) if bounded else (0, DK.SPEC_CS)
+            else:
+                continue  # SOM, LBR and the other NFAs scan on the host
+            corpus_t, tabs, meta, _p, _s, _l = chunk_inputs(
+                torch, d, last, [block], H, CS, np.full(1, d.start_state))
+            (_r, tot, _f), e = compare_dfa(torch, DK, corpus_t, tabs, meta,
+                                           H)
+            errs["dfa_scan"] = max(errs.get("dfa_scan", 0), e)
+            log(f"feature {name} kernel C ({type(eng).__name__}, H={H}) on "
+                f"its last {block} B: {int(tot)} records, shared and "
+                "global tables: exact")
+        T.LAUNCHES.update(counts)
+        return errs
+
+    return held
+
+
+def feature_path(torch, T, card: str, clock_hz) -> dict:
+    """Phase 7, with the launch counts set to 0 just before it and read
+    just after: tools/features.run_feature for every feature database on
+    the card, each kernel the database ran held against its plain
+    version at its inputs (feature_kernel_checks, not counted), the
+    card's memory read before each database is built and after it is
+    dropped."""
+    import gc
+
+    from hyperscan_tpu_torch.tools import features as FT
+
+    t0 = time.perf_counter()
+    base = FT.base_corpus(FEATURE_BYTES, FEATURE_SEED)
+    log(f"feature corpus: {FEATURE_BYTES} B in "
+        f"{time.perf_counter() - t0:.1f} s")
+    per = {}
+    T.reset_launches()
+    for name in FT.FEATURES:
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        before = dict(T.LAUNCHES)
+        r = FT.run_feature(
+            name, base, device=DEVICE, block=FEATURE_BLOCK,
+            prefix=FEATURE_BLOCK, spacing=FEATURE_SPACING,
+            streams=FEATURE_STREAMS, write=STREAM_WRITE,
+            rounds=FEATURE_ROUNDS, check_streams=CHECK_STREAMS,
+            sync=torch.cuda.synchronize,
+            kernel_checks=feature_kernel_checks(torch, T, clock_hz, name))
+        r["launches"] = {k: v - before[k] for k, v in T.LAUNCHES.items()
+                         if v > before[k]}
+        gc.collect()
+        torch.cuda.synchronize()
+        r["mem_left"] = torch.cuda.memory_allocated() - mem0
+        check(r["mem_left"] <= 512, f"feature {name}: dropping the database "
+              f"left {r['mem_left']} B allocated on the card")
+        per[name] = r
+        st = r["stages"]
+        line = (f"feature {name}: {r['plants']} plants found, "
+                f"{r['matches']} matches; scan {st['scan']:.3f} s -> "
+                f"{r['bytes'] / st['scan'] / 1e9:.3f} GB/s")
+        if "stream_bytes" in r:
+            line += (f"; StreamSet {FEATURE_STREAMS} x {STREAM_WRITE} B x "
+                     f"{FEATURE_ROUNDS} rounds {st['streamset']:.3f} s -> "
+                     f"{r['stream_bytes'] / st['streamset'] / 1e9:.3f} GB/s,"
+                     f" close of every stream {st['stream_close']:.3f} s, "
+                     f"{r['stream_matches']} matches")
+        log(f"{line}; families {r.get('families', {})}; launches "
+            f"{r['launches']}; memory left {r['mem_left']} B [{card}]")
+        log(f"feature {name} stage seconds [{card}]: "
+            + json.dumps({k: round(v, 6) for k, v in st.items()}))
+    launches = dict(T.LAUNCHES)
+    for k in FEATURE_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched in the feature "
+              "phase")
+    return {"features": per, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3263,6 +3412,16 @@ def main() -> int:
         f"planted) over {CHIMERA_BYTES} B equal the CPU's, ch_scan "
         f"{chm['card_s']:.3f} s; launches {chm['launches']}; phase 6 "
         f"{time.perf_counter() - t6:.1f} s")
+    # phase 7: the feature surface at full width
+    t7 = time.perf_counter()
+    fp = feature_path(torch, T, card, clock_hz)
+    for r in fp["features"].values():
+        errs = dict(r["kernel_errs"])
+        err_c = max(err_c, errs.pop("dfa_scan", 0))
+        err_d = max(err_d, errs.pop("nfa_layered", 0))
+        merge(errs)
+    log(f"feature-phase launches: {fp['launches']}; phase 7 "
+        f"{time.perf_counter() - t7:.1f} s")
     log("forced-family GB/s [" + card + "]: " + json.dumps(
         {f"{k} {f}": round(v["gb_s"], 4) for (k, f), v in forced.items()}))
     c = ekt[("bounded_dfa", "one_block")]
@@ -3382,11 +3541,12 @@ def main() -> int:
             "ms": pms[f"stage {s_}"],
             "plain_ms": probe["plain_ms"][f"stage {s_}"],
             **probe["bounds"][f"stage {s_}"]} for s_ in (0, 1, 2)}})
-    # the launches of 3g's SOM path and of its bench run, beside the main
-    # path's
+    # the launches of 3g's SOM path, of its bench run and of phase 7,
+    # beside the main path's
     for k in kernels:
         k["som_launches"] = glaunch.get(k["name"], 0)
         k["bench_launches"] = br["launches"].get(k["name"], 0)
+        k["features_launches"] = fp["launches"].get(k["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3399,4 +3559,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                              int(sys.argv[5])))
-    sys.exit(mesh_only() if sys.argv[1:] == ["--mesh-only"] else main())
+    if sys.argv[1:] == ["--mesh-only"]:
+        sys.exit(mesh_only())
+    sys.exit(main())

@@ -1095,3 +1095,45 @@ def test_chimera_on_card_equals_cpu(card):
         + T.LAUNCHES["teddy_kconfirm"] + T.LAUNCHES["teddy_filter_plane"] > 0
     assert CH.ch_scan(db, data, matches=want, device="cpu") == CH.CH_SUCCESS
     assert got == want and len(got) >= 37
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["combination", "ext", "singlematch",
+                                  "anchored", "fuzzy", "utf8", "bitnfa",
+                                  "ranges"])
+def test_feature_database_on_card(card, name):
+    """tools/features.py's databases on the card at a small size: plants
+    found, the prefix equal to the host route, the round trip equal, the
+    StreamSet's streams equal to the host route."""
+    from hyperscan_tpu_torch.tools import features as FT
+
+    r = FT.run_feature(name, FT.base_corpus(4 << 20, 13), device="cuda",
+                       block=1 << 20, prefix=1 << 20, spacing=8192,
+                       streams=64, write=8192, rounds=3, check_streams=64,
+                       sync=torch.cuda.synchronize)
+    assert r["plants"] > 0 and r["matches"] >= r["plants"]
+
+
+@pytest.mark.cuda
+def test_dropped_database_frees_card_memory(card):
+    """A database dropped after scans on the card gives back every byte
+    its tables took: the device tables hang on the database's own objects
+    and no module keeps them."""
+    import gc
+
+    from hyperscan_tpu_torch.tools import features as FT
+
+    data = FT.planted(FT.base_corpus(1 << 22, 3),
+                      FT.FEATURES["bitnfa"].plant,
+                      FT.plant_offsets(1 << 22, 8192)).tobytes()
+    for name in ("anchored", "bitnfa", "utf8"):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        db = FT.compile_feature(name, host_scan_limit=0)
+        ht.scan(db, data)
+        assert torch.cuda.memory_allocated() > before
+        del db
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() - before <= 512, name
