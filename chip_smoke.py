@@ -104,7 +104,8 @@ Phases, in order; any failure exits non-zero:
    filter kernel of every family it ran. A worker that fails fails the
    phase. `python3 chip_smoke.py --mesh-only` runs this phase alone,
    with what it compares against made first (for a machine of several
-   cards).
+   cards), and then graft_entry.dryrun_multichip over every visible
+   card.
    SOM on the card (3g), run after 3e: the first 100 bench patterns
    without shape 5 (84), SOM_LEFTMOST, through scan_batch over both 512
    MB corpora (the literal route with reverse back-scan validators), and
@@ -174,10 +175,30 @@ Phases, in order; any failure exits non-zero:
    database gives back the card's memory (torch.cuda.memory_allocated
    within 512 bytes of where it stood before it was built); kernels A, B,
    C and D must have been launched in the phase.
-8. One JSON line listing every kernel (with its launches on the main
-   path, on 3g's SOM path, in 3g's bench run and in phase 7), the card's
-   name and power limit as nvidia-smi reports them, and the final status
-   line.
+8. The graft entry points and the per-kernel benches
+   (hyperscan_tpu_torch/graft_entry.py, tools/kernel_bench.py,
+   tools/kconf_bench.py): graft_entry.entry()'s block-scan step on the
+   card (kernel C's row mode), its five outputs equal to
+   entry(device="cpu")'s and its row-mode scan equal to
+   dfa_scan_batch_plain; dryrun_multichip(4) on four shards of card 0
+   (the sharded DFA count equal to its gathered matches, kernel 7's
+   sharded count, scan_batch(mesh=) equal to the unsharded scan); the
+   kconfirm bench at 64 MiB iid with the 10k ruleset (the kconfirm and
+   compact families forced, their verified pairs equal scan by scan);
+   the kernel bench at reduced depth (the four engine benches over a
+   16 MiB block, each kernel first equal to its plain version on that
+   block). Kernels C's row mode, 7's count mode, kconfirm, A and B must
+   have been launched in the phase. Then each kernel at the inputs the
+   phase gave it, against its plain version (these launches not
+   counted): kernel C's row mode on each shard's rows of the dry run's
+   DFA step, kernel 7 on each shard's segment of its filter count, the
+   literal family's kernels on its product corpus (unsharded and each
+   shard's blocks, at their capacities), and kernel 4, or kernels A and
+   B, on the kconfirm bench's last timed scan of each family.
+9. One JSON line listing every kernel (with its launches on the main
+   path, on 3g's SOM path, in 3g's bench run, in phase 7 and in phase 8),
+   the card's name and power limit as nvidia-smi reports them, and the
+   final status line.
 
 Imports nothing of JAX nor of the JAX package.
 """
@@ -198,8 +219,6 @@ CHECK_CAPC = 128  # capc of the 16 MB kernel checks (the learned floor)
 PREFIX_BYTES = 64 * MB
 TIMED_SCANS = 3
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-SMEM_LOOKUPS_PER_CLK = 132 * 32  # SMs x shared-memory words per clock
 
 _T0 = time.perf_counter()
 
@@ -209,48 +228,18 @@ def log(msg: str) -> None:
           flush=True)
 
 
-def check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise RuntimeError("check failed: " + msg)
-
-
 # --- the bench rulesets and corpora (the generator of bench.py, copied) -----
 
 from hyperscan_tpu_torch.tools.benchdata import (  # noqa: E402
     NFA_ENGINES, PLANT_AT, PLANTS, gen_corpus, patterns, plant_many_class)
 from hyperscan_tpu_torch.tools.features import host_limit  # noqa: E402
-
-
-# --- card queries and timing -------------------------------------------------
-
-
-def nvidia_smi(query: str) -> str:
-    r = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0].strip()
-
-
-# a spin of the card (~10 ms at 1,980 MHz) that timed calls queue behind
-QUEUE_CYCLES = 20_000_000
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds per call on the card (CUDA events, after one
-    warm-up call). The calls are queued behind a spin of the card, so a
-    kernel shorter than its host-side launch is timed on the card, not at
-    the host's pace."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_CYCLES)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+# phase 4b and the kernel bench's helpers, shared with the port's
+# per-kernel benches (tools_torch_bench_kernels.py)
+from hyperscan_tpu_torch.tools.kernel_bench import (  # noqa: E402
+    ENGINE_BLOCK, ENGINE_SETS, HBM_BYTES_PER_S, INT_OPS_PER_CLK,
+    SMEM_LOOKUPS_PER_CLK, check, chunk_inputs, compare_dfa, compare_nfa,
+    cuda_ms, engine_blocks, engine_db, engine_kernel_times, nfa_engine,
+    nvidia_smi, plant_engines)
 
 
 # --- kernel vs plain comparisons ---------------------------------------------
@@ -426,90 +415,30 @@ def kernel_checks(torch, T, dbs):
 # --- the engine path: the general engines (DFA and bit-NFA) ------------------
 
 ENGINE_BYTES = 256 * MB
-ENGINE_BLOCK = 16 * 1024  # the batch shape: 16,384 blocks of 16 KiB
 ENGINE_HOST_BYTES = 32 * MB
-# one database per device route, the JAX package's per-kernel bench sets
-# (tools_bench_kernels.py:19-22, :88-91, :152-155, :214): (patterns,
-# flags, Grey tunables, the route's kernel)
-ENGINE_SETS = {
-    "bounded_dfa": ([r"ab[cd]{2,6}ef", r"[0-9]{3}-[0-9]{4}",
-                     r"GET /[a-z]{1,12} "], [0, 0, 0],
-                    {"allow_teddy": False}, "dfa_scan"),
-    "unbounded_dfa": ([r"\d+[a-z]{3,}\d+"], [2],  # DOTALL
-                      {"allow_teddy": False}, "dfa_scan"),
-    "cyclic_nfa": ([r"(ax|by|cz|dw)+[!]"], [0],
-                   {"max_dfa_states": 8, "allow_teddy": False}, "dfa_scan"),
-    "acyclic_nfa": ([r".*a.{18}b"], [0], {}, "nfa_layered"),
-}
 # a larger bounded DFA (S = 3,072, C = 4: S x C = 12,288), past the row
 # mode's shared-table limit and inside the chunk scan's, so kernel C's
 # default placements differ between its modes
 LARGE_DFA = r"a[^\n]{10}b"
-ENGINE_PLANTS = [b"abcdef", b"abddddef", b"555-1212", b"GET /index ",
-                 b"12abc34", b"9zzzzzzzz8", b"axbycz!", b"dwdw!",
-                 b"a" + b"q" * 18 + b"b", b"x12345678y"]
-# 32-bit integer add, shift and bitwise AND/OR/XOR: 64 results a clock an
-# SM on compute capability 9.0 (the CUDA C++ Programming Guide's
-# arithmetic-instruction throughput table), times the SMs; times the SM
-# clock gives the card's integer rate
-INT_OPS_PER_CLK = 132 * 64
-
-
-def nfa_engine(name: str):
-    from hyperscan_tpu_torch.database import compile_patterns
-    from hyperscan_tpu_torch.grey import Grey
-
-    pat, grey = NFA_ENGINES[name]
-    return compile_patterns([pat], grey=Grey(**grey)).engines[0]
-
-
-def nfa_bound(plan, n: int, n_blocks: int, records: int, clock_hz) -> dict:
-    """Kernel D's bound over n bytes: the largest of three times, as the
-    three go through different pipes. Integer operations, per 32-byte word
-    of the n bytes: a position with k predecessors ORs their words (k - 1)
-    and takes the OR a byte on with its carry (one funnel shift), E in
-    all, then masks it with its class word and the bytes that continue a
-    block (one three-input LOP3), P in all; at 132 x 64 results a clock.
-    Lookups: one membership word a byte for each 32 classes, at the
-    shared-memory rate. Bytes: the corpus read once and the records and
-    block bounds written and read once, at the memory rate."""
-    words = -(-n // 32)
-    int_ops = words * (plan.E + plan.P)
-    lookups = n * -(-plan.K // 32)
-    t_int = int_ops / (INT_OPS_PER_CLK * clock_hz) * 1e3
-    t_lookups = lookups / (SMEM_LOOKUPS_PER_CLK * clock_hz) * 1e3
-    t_ops = max(t_int, t_lookups)
-    t_bytes = (n + records * 8 + n_blocks * 21) / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes), "word_ops": int_ops,
-            "lookups": lookups, "t_int": t_int, "t_lookups": t_lookups,
-            "t_ops": t_ops, "t_bytes": t_bytes,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def gen_engine_corpus(n: int, salt: int) -> np.ndarray:
     """The iid printable corpus with one engine plant every 4099 bytes
     (a prime stride, so plants fall across every chunk alignment)."""
-    corpus = gen_corpus(n, salt, "iid")
-    for k, off in enumerate(range(64, n - 32, 4099)):
-        p = ENGINE_PLANTS[k % len(ENGINE_PLANTS)]
-        corpus[off:off + len(p)] = np.frombuffer(p, np.uint8)
-    return corpus
+    return plant_engines(gen_corpus(n, salt, "iid"))
 
 
 def engine_dbs(ht):
     """route -> (device database, host database): the same patterns,
     the host one with host_scan_limit above ENGINE_HOST_BYTES."""
-    from hyperscan_tpu_torch.database import (DfaEngine, NfaEngine,
-                                              compile_patterns)
-    from hyperscan_tpu_torch.grey import Grey
+    from hyperscan_tpu_torch.database import DfaEngine, NfaEngine
     from hyperscan_tpu_torch.ops.nfa_kernel import nfa_device_eligible
 
     out = {}
-    for route, (pats, flags, grey, _k) in ENGINE_SETS.items():
+    for route in ENGINE_SETS:
         t0 = time.perf_counter()
-        dev = compile_patterns(pats, flags, grey=Grey(**grey))
-        host = compile_patterns(pats, flags, grey=Grey(
-            host_scan_limit=2 * ENGINE_HOST_BYTES, **grey))
+        dev = engine_db(route)
+        host = engine_db(route, host_scan_limit=2 * ENGINE_HOST_BYTES)
         (eng,) = dev.engines
         want = {"bounded_dfa": DfaEngine, "unbounded_dfa": DfaEngine,
                 "cyclic_nfa": NfaEngine, "acyclic_nfa": NfaEngine}[route]
@@ -533,78 +462,6 @@ def engine_dbs(ht):
             f"{time.perf_counter() - t0:.2f} s")
         out[route] = (dev, host)
     return out
-
-
-def chunk_inputs(torch, eng, corpus, blocks_lens, H, CS, entry):
-    """Kernel C's inputs for blocks of `blocks_lens` bytes laid head to
-    head over `corpus`, on the card."""
-    from hyperscan_tpu_torch.ops import dfa_kernel as DK
-
-    lens = np.asarray(blocks_lens, np.int64)
-    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
-    plan = DK.plan_chunks(starts, lens, H, CS, entry, eng.float_state)
-    corpus_t = torch.from_numpy(corpus[:int(lens.sum())]).to(DEVICE)
-    return (corpus_t, DK.device_tables(eng, DEVICE),
-            torch.from_numpy(plan.meta).to(DEVICE), plan, starts, lens)
-
-
-def compare_dfa(torch, DK, corpus_t, tabs, meta, H,
-                placements=("shared", "global")):
-    """Kernel C with its tables in each placement vs its plain version on
-    the same inputs: the same total (also at a cap below it, where it
-    must stay exact), record set and finals. Returns (the first
-    placement's kernel outputs, max abs error)."""
-    cap = 1 << 22
-    rp, tp, fp = DK.dfa_scan_chunks_plain(corpus_t, tabs, meta, H, cap)
-    k = int(tp)
-    check(k <= cap, "kernel C check: records past 2^22")
-
-    def rows(r):
-        r = r[:k].long()
-        return r[torch.argsort(r[:, 0] * 512 + r[:, 1])]
-
-    want = rows(rp) if k else None
-    first, err = None, 0
-    for placement in placements:
-        rk, tk, fk = DK.dfa_scan_chunks(corpus_t, tabs, meta, H, cap,
-                                        placement=placement)
-        _r, t_small, _f = DK.dfa_scan_chunks(corpus_t, tabs, meta, H,
-                                             max(1, k // 3),
-                                             placement=placement)
-        torch.cuda.synchronize()
-        check(int(tk) == k == int(t_small),
-              f"kernel C ({placement}) total {int(tk)} (at a cap below "
-              f"it {int(t_small)}) != plain version's {k}")
-        e = max(int((fk - fp).abs().max()) if fk.numel() else 0,
-                int((rows(rk) - want).abs().max()) if k else 0)
-        check(e == 0, f"kernel C ({placement}) != plain version")
-        err = max(err, e)
-        first = first or (rk, tk, fk)
-    return first, err
-
-
-def compare_nfa(torch, NK, corpus_t, plan, bs, be, ba):
-    """Kernel D vs its plain version, also at a cap below the record
-    total (which must stay exact). Returns (kernel outputs, err)."""
-    cap = 1 << 22
-    rk, tk, ek = NK.nfa_layered(corpus_t, plan, bs, be, ba, cap)
-    rp, tp, ep = NK.nfa_layered_plain(corpus_t, plan, bs, be, ba, cap)
-    k = int(tp)
-    _r, t_small, _e = NK.nfa_layered(corpus_t, plan, bs, be, ba,
-                                     max(1, k // 3))
-    torch.cuda.synchronize()
-    check(int(tk) == k == int(t_small) and k <= cap,
-          f"kernel D total {int(tk)} (at a cap below it {int(t_small)}) != "
-          f"plain version's {k}")
-
-    def rows(r):
-        r = r[:k].long()
-        return r[torch.argsort(r[:, 0])]
-
-    err = max(int((ek - ep).abs().max()) if ek.numel() else 0,
-              int((rows(rk) - rows(rp)).abs().max()) if k else 0)
-    check(err == 0, "kernel D != plain version")
-    return (rk, tk, ek), err
 
 
 def engine_kernel_checks(torch, edbs):
@@ -682,15 +539,6 @@ def engine_kernel_checks(torch, edbs):
     return err_c, err_d
 
 
-def engine_blocks(corpus: np.ndarray, shape: str):
-    """The two main-path shapes over one corpus: one block, or blocks of
-    ENGINE_BLOCK bytes."""
-    if shape == "one_block":
-        return [corpus]
-    return [corpus[i:i + ENGINE_BLOCK]
-            for i in range(0, len(corpus), ENGINE_BLOCK)]
-
-
 def engine_path(ht, edbs, corpus) -> dict:
     """Phase 3b: every engine route through scan_batch on the card, over
     256 MiB as one block and as 16,384 blocks: one warm scan, then
@@ -765,106 +613,6 @@ def engine_breakdown(torch, db, blocks) -> dict:
     for r, b in zip(recs, blocks):
         S.finalize_reports(db, r, end_offset=len(b))
     lap("finalize_reports")
-    return out
-
-
-def engine_kernel_times(torch, edbs, corpus, clock_hz) -> dict:
-    """Phase 4b: kernels C and D at the engine path's shapes (256 MiB,
-    both shapes; CUDA events), beside their bounds and their plain
-    versions, and the seconds of the speculative host chains."""
-    from hyperscan_tpu_torch.ops import dfa_kernel as DK
-    from hyperscan_tpu_torch.ops import nfa_kernel as NK
-
-    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
-    out = {}
-    for route, (db, _host) in edbs.items():
-        eng = db.engines[0]
-        for shape in ("one_block", "blocks_16k"):
-            lens = [len(b) for b in engine_blocks(corpus, shape)]
-            r = {}
-            if route == "acyclic_nfa":
-                corpus_t = torch.from_numpy(corpus).to(DEVICE)
-                plan = NK.device_plan(eng, DEVICE)
-                starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
-                bs, be, ba, _ne = NK.block_bounds(
-                    starts, lens, np.ones(len(lens), bool), DEVICE)
-                (_rk, tot, _e), err = compare_nfa(torch, NK, corpus_t, plan,
-                                                  bs, be, ba)
-                cap = max(1, int(tot))
-                r["ms"] = cuda_ms(torch, lambda: NK.nfa_layered(
-                    corpus_t, plan, bs, be, ba, cap), 10)
-                r["plain_ms"] = cuda_ms(torch, lambda: NK.nfa_layered_plain(
-                    corpus_t, plan, bs, be, ba, cap), 1)
-                b = nfa_bound(plan, corpus_t.numel(), len(lens), int(tot),
-                              clock_hz)
-                r.update(records=int(tot), err=err, word_ops=b["word_ops"],
-                         kernel="nfa_layered")
-                t_ops, t_bytes = b["t_ops"], b["t_bytes"]
-                # the other engines at the same shape, each exact first
-                pc = plant_many_class(corpus, 1000, 65_537)
-                pc_t = torch.from_numpy(pc).to(DEVICE)
-                r["engines"] = {}
-                for name in NFA_ENGINES:
-                    ep = NK.device_plan(nfa_engine(name), DEVICE)
-                    (_rk, t2, _e), e2 = compare_nfa(torch, NK, pc_t, ep, bs,
-                                                    be, ba)
-                    r["err"] = max(r["err"], e2)
-                    c2 = max(1, int(t2))
-                    r["engines"][name] = dict(
-                        P=ep.P, K=ep.K, E=ep.E, records=int(t2),
-                        ms=cuda_ms(torch, lambda: NK.nfa_layered(
-                            pc_t, ep, bs, be, ba, c2), 10),
-                        plain_ms=cuda_ms(torch, lambda: NK.nfa_layered_plain(
-                            pc_t, ep, bs, be, ba, c2), 1),
-                        **nfa_bound(ep, pc_t.numel(), len(lens), int(t2),
-                                    clock_hz))
-                del pc, pc_t
-            else:
-                spec = route != "bounded_dfa"
-                d = eng.spec_dfa if route == "cyclic_nfa" else eng
-                H, CS = (0, DK.SPEC_CS) if spec else DK.chunk_shape(d)
-                corpus_t, tabs, meta, plan, starts, lens_a = chunk_inputs(
-                    torch, d, corpus, lens, H, CS,
-                    np.full(len(lens), d.start_state))
-                (_rk, tot, fin), err = compare_dfa(torch, DK, corpus_t, tabs,
-                                                   meta, H)
-                cap = max(1, int(tot))
-                r["ms"] = cuda_ms(torch, lambda: DK.dfa_scan_chunks(
-                    corpus_t, tabs, meta, H, cap), 10)
-                # the other placement, forced: the tables read from
-                # global memory through the read-only path
-                r["ms_global_tables"] = cuda_ms(
-                    torch, lambda: DK.dfa_scan_chunks(
-                        corpus_t, tabs, meta, H, cap, placement="global"),
-                    10)
-                r["plain_ms"] = cuda_ms(
-                    torch, lambda: DK.dfa_scan_chunks_plain(
-                        corpus_t, tabs, meta, H, cap), 1)
-                m = plan.meta.astype(np.int64)
-                live = int((m[:, 2] - m[:, 1]).sum())
-                lookups = 2 * live  # a class map and a transition
-                t_ops = lookups / lookups_per_s * 1e3
-                nch = meta.shape[0]
-                t_bytes = (corpus_t.numel() + nch * 20 + int(tot) * 12
-                           + tabs.nbytes + 1024) / HBM_BYTES_PER_S * 1e3
-                r.update(records=int(tot), err=err, chunks=nch,
-                         lookups=lookups, kernel="dfa_scan",
-                         placement=DK.placement_of(tabs, None, "chunks"))
-                if spec:
-                    fin_np = fin.cpu().numpy()
-                    t0 = time.perf_counter()
-                    if route == "cyclic_nfa":
-                        resc, _h, _f = DK.nfa_spec_chain(
-                            eng, corpus, starts, lens_a,
-                            np.ones(len(lens), bool), plan, fin_np)
-                    else:
-                        resc, _x, _f = DK.dfa_spec_chain(
-                            eng, corpus, starts, lens_a, plan, fin_np)
-                    r["host_chain_s"] = time.perf_counter() - t0
-                    r["rescanned_chunks"] = len(resc)
-            r["bound_ms"] = max(t_ops, t_bytes)
-            r["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
-            out[(route, shape)] = r
     return out
 
 
@@ -1887,7 +1635,8 @@ def mesh_only() -> int:
     """`--mesh-only`: phase 3f alone, with what it compares against made
     here (build, the 10k ruleset, both 512 MiB corpora and their
     single-process scan_batch, the bounded DFA) — for a machine of
-    several cards, where 3f runs on NCCL."""
+    several cards, where 3f runs on NCCL; then
+    graft_entry.dryrun_multichip over every visible card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1920,6 +1669,15 @@ def mesh_only() -> int:
     mp = multiprocess_path(torch, ht, T, db, edb, corpora,
                            gen_engine_corpus(ENGINE_BYTES, 5), singles)
     log_multiprocess(mp, card)
+    from hyperscan_tpu_torch import graft_entry as GE
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    dr = GE.dryrun_multichip(n, DEVICE)
+    log(f"dryrun_multichip({n}) on {dr['devices']}: DFA count "
+        f"{dr['count']}, teddy candidates {dr['teddy_count']}, product path "
+        f"{sum(map(len, dr['single']))} matches sharded == unsharded; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2346,6 +2104,8 @@ def path_kernel_checks(torch, T, lit, h, clock_hz, what: str):
         check(errs["kconfirm"] == 0, f"{what}: kernel 4 != plain")
         check(int(h.meta[2]) == int(op_[1].sum()),
               f"{what}: its match total != the plain version's")
+        log(f"{what} kernels (kconfirm) on its {n} B: "
+            f"{int(op_[1].sum())} hash-matched pairs: exact")
         return errs, times
     if h.family == "dense":
         plane_k = T.filter_plane(corpus, ft, use_classes=classes)
@@ -3052,6 +2812,194 @@ def feature_path(torch, T, card: str, clock_hz) -> dict:
     return {"features": per, "launches": launches}
 
 
+# --- phase 8: the graft entry points and the per-kernel benches ------------
+
+SURFACE_SHARDS = 4  # dryrun_multichip on four shards of card 0
+KBENCH_MB = (16,)  # the kernel bench at reduced depth: a 16 MiB block
+KBENCH_REPS = 5
+KCONF_MB = 64  # the kconfirm bench at 64 MiB, 2 timed scans a family
+KCONF_ITERS = 2
+
+
+def surface_path(torch, T, db, clock_hz) -> dict:
+    """Phase 8, every call through its entry point: the block-scan step of
+    graft_entry.entry() on the card, dryrun_multichip on four shards of
+    card 0 (built as shard_meshes builds them) and the kconfirm bench
+    (kconf_bench.run: kconfirm and compact forced over KCONF_MB MiB iid
+    with the 10k ruleset `db`), then the launch counts read; then the
+    kernel bench at reduced depth (kernel_bench.run_benches: each kernel
+    held against its plain version on the block it times, its timed
+    launches added to the counts); then surface_kernel_checks on the
+    inputs the phase gave the kernels."""
+    from hyperscan_tpu_torch import graft_entry as GE
+    from hyperscan_tpu_torch.parallel import SHARD_AXIS, Mesh
+    from hyperscan_tpu_torch.tools import kconf_bench as KC
+    from hyperscan_tpu_torch.tools import kernel_bench as KB
+
+    out = {}
+    T.reset_launches()
+    t0 = time.perf_counter()
+    fn, args = GE.entry(DEVICE)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    out["entry_s"] = time.perf_counter() - t0
+    mesh = Mesh([torch.device(DEVICE, 0)] * SURFACE_SHARDS, (SHARD_AXIS,))
+    t0 = time.perf_counter()
+    out["dryrun"] = GE.dryrun_multichip(SURFACE_SHARDS, DEVICE, mesh=mesh)
+    out["dryrun_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["kconf"] = KC.run(db, KCONF_MB, KCONF_ITERS, "iid", KC.FAMILIES,
+                          DEVICE)
+    out["kconf_s"] = time.perf_counter() - t0
+    launches = dict(T.LAUNCHES)
+    for k in ("dfa_scan_rows", "teddy_words_count", "teddy_kconfirm",
+              "teddy_filter_compact", "teddy_hash_confirm"):
+        check(launches[k] > 0, f"kernel {k} was not launched in phase 8")
+    t0 = time.perf_counter()
+    out["kbench"] = KB.run_benches(sizes_mb=KBENCH_MB, reps=KBENCH_REPS,
+                                   device=DEVICE, clock_hz=clock_hz)
+    out["kbench_s"] = time.perf_counter() - t0
+    for r in out["kbench"].values():
+        launches[r["kernel"]] += r["launches"]
+    out["launches"] = launches
+    t0 = time.perf_counter()
+    out["errs"], out["total"] = surface_kernel_checks(
+        torch, T, db, args, got, out["dryrun"], out["kconf"], clock_hz)
+    out["checks_s"] = time.perf_counter() - t0
+    return out
+
+
+def surface_kernel_checks(torch, T, db, args, got, dr, kconf, clock_hz):
+    """Phase 8's kernels at the inputs the phase gave them, each against
+    its plain version, exact:
+    - entry(): its five outputs equal entry(device="cpu")'s, and kernel
+      C's row mode equals dfa_scan_batch_plain on `args`;
+    - the dry run (`dr`): kernel C's row mode on each shard's rows of
+      the sharded DFA step; kernel 7 (count mode, words_check) on each
+      shard's segment of the sharded filter count, with its look-back;
+      the literal family's kernels (path_kernel_checks) on the
+      unsharded product corpus and on each shard's blocks, dispatched
+      again at the learned capacities (the family must be one the
+      product path ran);
+    - the kconfirm bench (`kconf`): the last timed scan of each family
+      through path_kernel_checks (kernel 4; kernels A and B).
+    The launches of these checks are not counted. Returns (the max abs
+    error of each kernel, keyed as path_kernel_checks's and "words",
+    "dfa_batch"; entry()'s match total)."""
+    from hyperscan_tpu_torch import graft_entry as GE
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import teddy_families as F
+    from hyperscan_tpu_torch.ops import teddy_words as TW
+    from hyperscan_tpu_torch.ops.dfa import (dfa_scan_batch,
+                                             dfa_scan_batch_plain)
+    from hyperscan_tpu_torch.parallel.sharded import (
+        LOOKBACK, global_shard_arrays, pad_batch_for_mesh, partition_blocks,
+        segments)
+    from hyperscan_tpu_torch.runtime.scan import Scratch
+
+    errs = {"dfa_batch": 0, "words": 0}
+
+    def rows(a):
+        a_k, f_k = dfa_scan_batch(*a)
+        a_p, f_p = dfa_scan_batch_plain(*a)
+        e = max(int((a_k - a_p).abs().max()), int((f_k - f_p).abs().max()))
+        errs["dfa_batch"] = max(errs["dfa_batch"], e)
+        return e
+
+    def literal(lit, h, what):
+        e, _t = path_kernel_checks(torch, T, lit, h, clock_hz, what)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    # entry() on the card against the CPU, its row mode against plain
+    cfn, cargs = GE.entry("cpu")
+    want = cfn(*cargs)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "entry() on the card != entry(device='cpu')")
+    check(int(want[0]) > 0, "entry() found no match")
+    trans, b2c, acc, _eod, s0, data, lengths = args
+    check(rows((trans, b2c, acc, s0, data, lengths)) == 0,
+          "entry()'s row mode != its plain version")
+    # the dry run's sharded DFA step, shard by shard
+    mesh, n = dr["mesh"], SURFACE_SHARDS
+    e = dr["engine"]
+    tabs = DK.device_tables(e, DEVICE)
+    data, lengths = pad_batch_for_mesh(GE.dfa_blocks(n), mesh, pad_len=128)
+    for d, (d_t, l_t) in enumerate(global_shard_arrays(mesh, data,
+                                                       lengths)):
+        check(rows((tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
+                    int(e.start_state), d_t, l_t)) == 0,
+              f"the dry run's DFA shard {d}: row mode != plain version")
+    # its sharded filter count, shard by shard
+    lit = dr["literal_db"].lit
+    ft, _ct = T.device_tables(lit, DEVICE)
+    masks = T.mask_tables(lit.masks, DEVICE)
+    corpus = GE.literal_corpus(n)
+    cand = 0
+    for lo, hi in segments(len(corpus), n):
+        if hi <= lo:
+            continue
+        back = min(lo, LOOKBACK)
+        part = torch.from_numpy(corpus[lo - back:hi].copy()).to(DEVICE)
+        err, c = words_check(torch, T, TW, part, ft, masks, back)
+        errs["words"] = max(errs["words"], err)
+        cand += c
+    check(cand == dr["teddy_count"], f"the dry run's filter count "
+          f"{dr['teddy_count']} != the plain version's {cand}")
+    # its product path: unsharded, then each shard's blocks, each at the
+    # capacity scan_batch gives it
+    pdb, blocks = dr["product_db"], dr["product_blocks"]
+    ran = {k for k, v in F.family_state(pdb.lit).dispatches.items() if v}
+    flat, starts, lens = T.flatten_blocks(blocks)
+    cap = Scratch().capacity
+    parts = [("unsharded", 0, len(flat), max(cap, 1 << 14))]
+    for d, g in enumerate(partition_blocks(blocks, n)):
+        if g:
+            parts.append((f"shard {d}", int(starts[g[0]]),
+                          int(starts[g[-1]] + lens[g[-1]]), cap))
+    for what, lo, hi, c in parts:
+        h = F.confirm_start(T.corpus_tensor(flat[lo:hi], DEVICE), pdb.lit,
+                            hi - lo, c)
+        check(h.family in ran, f"the dry run's product path ({what}): "
+              f"dispatch family {h.family} is not one it ran "
+              f"({sorted(ran)})")
+        literal(pdb.lit, h, f"the dry run's product path, {what}")
+    # the kconfirm bench's last timed scan of each family
+    for fam, r in kconf.items():
+        check(r["handle"].family == fam, f"the kconfirm bench's {fam} "
+              f"scan ran {r['handle'].family}")
+        literal(db.lit, r["handle"], f"the kconfirm bench, {fam}")
+    return errs, int(want[0])
+
+
+def log_surface(sf: dict, card: str) -> None:
+    dr = sf["dryrun"]
+    log(f"entry() on the card: {sf['total']} matches, its five outputs == "
+        f"entry(device='cpu'), row mode == dfa_scan_batch_plain, "
+        f"{sf['entry_s']:.3f} s [{card}]")
+    log(f"dryrun_multichip({SURFACE_SHARDS}) on {sorted(set(dr['devices']))}"
+        f": DFA count {dr['count']} == gathered, teddy candidates "
+        f"{dr['teddy_count']}, product path "
+        f"{sum(map(len, dr['single']))} matches sharded == unsharded, "
+        f"scaling proxy {dr['proxy_s'][0]:.4f} -> {dr['proxy_s'][1]:.4f} s; "
+        f"{sf['dryrun_s']:.1f} s [{card}]")
+    from hyperscan_tpu_torch.tools import kconf_bench as KC
+    from hyperscan_tpu_torch.tools import kernel_bench as KB
+
+    for line in KB.report(sf["kbench"], card):
+        log("kernel bench: " + line)
+    log(f"kernel bench {sf['kbench_s']:.1f} s")
+    log(f"phase-8 kernel checks on the phase's inputs (entry() row mode; "
+        f"the dry run's DFA shards, filter segments and product corpus; "
+        f"the kconfirm bench's last scan of each family): exact, "
+        f"{sf['checks_s']:.1f} s")
+    for line in KC.report(sf["kconf"], KCONF_MB, KCONF_ITERS, card):
+        log("kconfirm bench: " + line)
+    pairs = [len(p) for p in sf["kconf"][KC.FAMILIES[0]]["pairs"]]
+    log(f"kconfirm bench: verified pairs of {' and '.join(KC.FAMILIES)} "
+        f"equal in every timed scan ({pairs}); {sf['kconf_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3422,6 +3370,21 @@ def main() -> int:
         merge(errs)
     log(f"feature-phase launches: {fp['launches']}; phase 7 "
         f"{time.perf_counter() - t7:.1f} s")
+    # phase 8: the graft entry points and the per-kernel benches
+    t8 = time.perf_counter()
+    sf = surface_path(torch, T, db, clock_hz)
+    log_surface(sf, card)
+    serrs = dict(sf["errs"])
+    merr["dfa_batch"] = max(merr["dfa_batch"], serrs.pop("dfa_batch"))
+    merr["words"] = max(merr["words"], serrs.pop("words"))
+    merge(serrs)
+    for r in sf["kbench"].values():
+        if r["kernel"] == "dfa_scan":
+            err_c = max(err_c, r["err"])
+        else:
+            err_d = max(err_d, r["err"])
+    log(f"phase-8 launches: {sf['launches']}; phase 8 "
+        f"{time.perf_counter() - t8:.1f} s")
     log("forced-family GB/s [" + card + "]: " + json.dumps(
         {f"{k} {f}": round(v["gb_s"], 4) for (k, f), v in forced.items()}))
     c = ekt[("bounded_dfa", "one_block")]
@@ -3541,12 +3504,13 @@ def main() -> int:
             "ms": pms[f"stage {s_}"],
             "plain_ms": probe["plain_ms"][f"stage {s_}"],
             **probe["bounds"][f"stage {s_}"]} for s_ in (0, 1, 2)}})
-    # the launches of 3g's SOM path, of its bench run and of phase 7,
-    # beside the main path's
+    # the launches of 3g's SOM path, of its bench run, of phase 7 and of
+    # phase 8, beside the main path's
     for k in kernels:
         k["som_launches"] = glaunch.get(k["name"], 0)
         k["bench_launches"] = br["launches"].get(k["name"], 0)
         k["features_launches"] = fp["launches"].get(k["name"], 0)
+        k["surface_launches"] = sf["launches"].get(k["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ corpus it times, on the card:
 - "C end to end": `confirm_start` / `confirm_fetch_many` /
   `confirm_finish` with the kconfirm family forced, host stages included.
 
-Kernel times are CUDA-event means after one warm-up call; the end-to-end
-time is wall-clock. Every line gives ms and GB/s of corpus.
+Kernel times are CUDA-event means after one warm-up call, queued behind
+a spin of the card (`kernel_bench.time_ms`); the end-to-end time is the
+kconfirm bench's forced-family loop (`kconf_bench.run_family`),
+wall-clock. Every line gives ms and GB/s of corpus.
 
 It first prints the fill of kernel 4's bucket rows per confirm group
 (`--fills` stops there, and needs no card).
@@ -28,36 +30,17 @@ Usage, on a machine with a CUDA card:
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
 
 import numpy as np
 
 from .benchdata import gen_corpus, patterns
+from .kconf_bench import WARM, run_family
+from .kernel_bench import nvidia_smi, time_ms
 
 STAGE_NAMES = ("D plane", "stage 0", "stage 1", "stage 2", "stage 3",
                "B stage 3 + combine", "C end to end")
-
-
-def _time_ms(torch, fn, reps: int, device) -> float:
-    """Mean ms per call after one warm-up call: CUDA events on a card,
-    the wall clock elsewhere."""
-    fn()
-    if torch.device(device).type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) / reps * 1e3
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def stage_times(db, corpus: np.ndarray, reps: int = 10,
@@ -65,7 +48,7 @@ def stage_times(db, corpus: np.ndarray, reps: int = 10,
     """ms of each probe variant (STAGE_NAMES) over `corpus` with the
     literal database `db`, and what they counted: the candidates, the
     matches, and the families the end-to-end scans ran. The database's
-    learned capacities come from two warm end-to-end scans."""
+    learned capacities come from the end-to-end loop's warm scans."""
     import torch
 
     from ..ops import teddy as T
@@ -75,49 +58,32 @@ def stage_times(db, corpus: np.ndarray, reps: int = 10,
 
     device = resolve_device(device)
     lit = db.lit
-    n = len(corpus)
     corpus_t = T.corpus_tensor(corpus, device)
     ft, _ct = T.device_tables(lit, device)
     kt = K.confirm_planes(lit, device)
     if kt is None:
         raise ValueError("the database has no kconfirm tables")
     uc = ft.cmasks is not None
-    force = F.family_state(lit).force
-    F.force_family(lit, "kconfirm")
-    try:
-        for _ in range(2):
-            F.confirm_finish(F.confirm_start(corpus_t, lit, n))
-        cap2 = F._caps_for(lit, 1 << 14)[2]
-        before = dict(F.family_state(lit).dispatches)
-
-        def end_to_end():
-            hs = [F.confirm_start(corpus_t, lit, n) for _ in range(reps)]
-            for h, got in zip(hs, F.confirm_fetch_many(hs)):
-                F.confirm_finish(h, got)
-
-        t0 = time.perf_counter()
-        end_to_end()
-        e2e_ms = (time.perf_counter() - t0) / reps * 1e3
-        fams = [f for f in F.FAMILIES
-                if F.family_state(lit).dispatches[f] > before[f]]
-    finally:
-        F.force_family(lit, force)
+    e2e = run_family(db, [corpus_t] * (WARM + reps), [corpus] * (WARM + reps),
+                     reps, "kconfirm")
+    cap2 = F._caps_for(lit, 1 << 14)[2]
 
     def kc(stage):
         return K.filter_kconfirm(corpus_t, ft, kt, use_classes=uc,
                                  stage=stage)
 
-    out = {"D plane": _time_ms(torch, lambda: T.filter_plane(
+    out = {"D plane": time_ms(torch, lambda: T.filter_plane(
         corpus_t, ft, use_classes=uc), reps, device)}
     for s in K.STAGES:
-        out[f"stage {s}"] = _time_ms(torch, lambda: kc(s), reps, device)
-    out["B stage 3 + combine"] = _time_ms(
+        out[f"stage {s}"] = time_ms(torch, lambda: kc(s), reps, device)
+    out["B stage 3 + combine"] = time_ms(
         torch, lambda: K.kconf_combine(*kc(3), cap2), reps, device)
-    out["C end to end"] = e2e_ms
+    out["C end to end"] = e2e["s_per_scan"] * 1e3
     cand, conf, _pos, _cls = kc(3)
     return {"ms": out, "candidates": int(cand.long().sum()),
-            "matches": int(conf.long().sum()), "families": fams,
-            "n_bytes": n, "groups": len(kt.groups), "classes": uc}
+            "matches": int(conf.long().sum()), "families": [e2e["family"]],
+            "n_bytes": len(corpus), "groups": len(kt.groups),
+            "classes": uc}
 
 
 def row_fills(lit) -> list:
@@ -173,11 +139,7 @@ def main(argv=None) -> int:
         return 0
     corpus = gen_corpus(args.mb << 20, 1, "iid")
     res = stage_times(db, corpus, args.reps, args.device)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0] \
-        if args.device != "cpu" else "cpu"
+    card = nvidia_smi("name,power.limit") if args.device != "cpu" else "cpu"
     print(f"{args.mb} MiB iid: {res['candidates']} candidates, "
           f"{res['matches']} hash matches, {res['groups']} confirm groups, "
           f"end-to-end families {res['families']}")

@@ -1137,3 +1137,64 @@ def test_dropped_database_frees_card_memory(card):
         gc.collect()
         torch.cuda.synchronize()
         assert torch.cuda.memory_allocated() - before <= 512, name
+
+
+@pytest.mark.cuda
+def test_graft_entry_on_card_equals_cpu(card):
+    """graft_entry.entry(): the block-scan step on the card (kernel C's row
+    mode) gives the five outputs of the same step on the CPU."""
+    from hyperscan_tpu_torch import graft_entry as GE
+    from hyperscan_tpu_torch.ops._build import LAUNCHES
+
+    fn, args = GE.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    before = LAUNCHES["dfa_scan_rows"]
+    got = fn(*args)
+    assert LAUNCHES["dfa_scan_rows"] == before + 1
+    cfn, cargs = GE.entry("cpu")
+    for g, w in zip(got, cfn(*cargs)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+def test_graft_dryrun_on_card(card, n):
+    """dryrun_multichip on the card: n cards where visible, else n shards
+    of card 0; its product path equals the CPU's."""
+    from hyperscan_tpu_torch import graft_entry as GE
+
+    r = GE.dryrun_multichip(n)
+    assert len(r["devices"]) == n
+    want = GE.dryrun_multichip(n, device="cpu")
+    assert r["count"] == want["count"]
+    assert [sorted(m) for m in r["single"]] == \
+        [sorted(m) for m in want["single"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bounded_dfa", "unbounded_dfa",
+                                   "cyclic_nfa", "acyclic_nfa"])
+def test_kernel_bench_on_card(card, route):
+    """tools/kernel_bench.py on the card at a small size: each kernel
+    equal to its plain version, its record count equal to the CPU's."""
+    from hyperscan_tpu_torch.tools import kernel_bench as KB
+
+    r = KB.bench_route(route, sizes_mb=(4,), reps=2)
+    assert r["err"] == 0 and r["launches"] == 3  # a warm-up call, 2 timed
+    c = KB.bench_route(route, sizes_mb=(4,), reps=1, device="cpu")
+    assert r["sizes"][4]["records"] == c["sizes"][4]["records"] > 0
+
+
+@pytest.mark.cuda
+def test_kconf_bench_on_card(card):
+    """tools/kconf_bench.py on the card: the kconfirm and compact families'
+    verified pairs equal each other's and the CPU's."""
+    from hyperscan_tpu_torch.tools import benchdata as BD
+    from hyperscan_tpu_torch.tools import kconf_bench as KC
+
+    pats, ids = BD.patterns(600)
+    db = ht.compile_multi(pats, ids=ids)
+    r = KC.run(db, mb=8, iters=2)
+    c = KC.run(db, mb=8, iters=2, device="cpu")
+    for fam in KC.FAMILIES:
+        assert r[fam]["pairs"] == c[fam]["pairs"]

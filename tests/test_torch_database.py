@@ -119,7 +119,12 @@ def test_port_imports_no_jax_nor_reference_package():
     for f in ("chip_smoke.py", "tools_torch_bench.py",
               "tools_torch_diff_device_host.py",
               "examples/torch/simplegrep.py",
-              "hyperscan_tpu_torch/tools/bench.py"):
+              "hyperscan_tpu_torch/tools/bench.py",
+              "hyperscan_tpu_torch/graft_entry.py",
+              "hyperscan_tpu_torch/tools/kernel_bench.py",
+              "hyperscan_tpu_torch/tools/kconf_bench.py",
+              "tools_torch_bench_kernels.py",
+              "tools_torch_bench_kconfirm.py"):
         assert ROOT / f in files, f
     for f in files:
         roots = set(_imported_roots(f))
