@@ -1,0 +1,8 @@
+"""Host ms per GiB of new bytes in the literal dispatch and host stages,
+cProfile half."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.host_ms_per_gib(run, "literal", "stream")
