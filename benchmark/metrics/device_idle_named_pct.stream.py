@@ -1,0 +1,7 @@
+"""Share of the card's idle time in gaps under an hs.* span."""
+
+from harness import stages
+
+
+def read(run):
+    return stages.idle_named_pct(run, "stream")

@@ -46,6 +46,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..trace import count
 from ._build import LAUNCHES
 from .teddy import (_check_corpus, _p2, get_capacity_hint,
                     set_capacity_hint, upload_blocks)
@@ -320,6 +321,7 @@ def _run_chunks(engine, corpus_t: torch.Tensor, tables: DfaTables,
         tot = int(total)
         if tot <= cap:
             break
+        count("redispatches")
         cap = _p2(tot)
     set_capacity_hint(engine, hint_key, cap)
     r = recs[:tot].long()

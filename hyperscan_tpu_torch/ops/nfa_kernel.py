@@ -45,6 +45,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..trace import count
 from ._build import LAUNCHES
 from .teddy import (_check_corpus, _p2, get_capacity_hint,
                     set_capacity_hint, upload_blocks)
@@ -485,6 +486,7 @@ def nfa_scan_corpus(engine, corpus_t: torch.Tensor, starts, lens,
         tot = int(total)
         if tot <= cap:
             break
+        count("redispatches")
         cap = _p2(tot)
     set_capacity_hint(engine, "nfa", cap)
     r = recs[:tot].long()

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..trace import spanned
 # the launch counters of every kernel of the port (one shared registry)
 from ._build import LAUNCHES, reset_launches  # noqa: F401
 
@@ -66,6 +67,7 @@ def set_capacity_hint(obj, key: str, capacity: int) -> None:
     obj.__dict__.setdefault("_torch_cap_hints", {})[key] = int(capacity)
 
 
+@spanned("hs.assemble")
 def flatten_blocks(blocks) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Blocks head to head in one flat uint8 corpus, with no gap: returns
     (corpus, starts int64 [B], lens int64 [B])."""
@@ -79,6 +81,7 @@ def flatten_blocks(blocks) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return corpus, starts, lens
 
 
+@spanned("hs.upload")
 def corpus_tensor(corpus: np.ndarray, device) -> torch.Tensor:
     """Flat uint8 corpus tensor on `device` (a view of the array on the
     CPU, an upload otherwise)."""

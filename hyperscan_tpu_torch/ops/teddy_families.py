@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..trace import count, spanned
 from .extract import plane_extract
 from .teddy import (CELL, ROW, _n_cells, _p2, compact_combine,
                     device_tables, filter_compact, filter_plane,
@@ -191,6 +192,7 @@ class ConfirmHandle:
     pairs: torch.Tensor  # int32 [cap2, 2] = (class id + 1, pos)
 
 
+@spanned("hs.dispatch")
 def confirm_start(corpus_u8: torch.Tensor, lit, n_valid: int,
                   capacity: int = 1 << 14) -> ConfirmHandle:
     """Dispatch the chosen family's filter, extraction and confirm over
@@ -275,6 +277,7 @@ def _observe_finish(handle: ConfirmHandle, meta: Sequence[int]) -> bool:
     return t1 <= cap1 and h1 <= capc and t2 <= cap2
 
 
+@spanned("hs.fetch")
 def confirm_fetch_many(handles: Sequence[ConfirmHandle]) -> List[np.ndarray]:
     """Fetch several started scans' meta and pair buffers in ONE
     device->host copy (reference: teddy_confirm_fetch_many,
@@ -296,6 +299,7 @@ def confirm_fetch_many(handles: Sequence[ConfirmHandle]) -> List[np.ndarray]:
     return out
 
 
+@spanned("hs.fetch")
 def confirm_finish(handle: ConfirmHandle, got: Optional[np.ndarray] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Fetch a started scan's hash-matched pairs as (fid_array,
@@ -316,6 +320,7 @@ def confirm_finish(handle: ConfirmHandle, got: Optional[np.ndarray] = None
                                  else handle.meta.tolist())]
         if _observe_finish(handle, meta):
             break
+        count("redispatches")
         handle = confirm_start(handle.corpus, handle.lit, handle.n_valid)
         got = None
     else:

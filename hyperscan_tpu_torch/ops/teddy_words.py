@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..trace import count
 from ._build import LAUNCHES
 from .teddy import (_PLAIN_CHUNK_CELLS, CELL, FilterTables, _check_corpus,
                     _n_cells, _p2, get_capacity_hint, mask_tables,
@@ -294,6 +295,7 @@ def teddy_scan_tensor(corpus_u8: torch.Tensor, tables: FilterTables,
         total = int(total_t)
         if total <= cap:
             break
+        count("redispatches")
         cap = _p2(total)
     if hint_obj is not None:
         set_capacity_hint(hint_obj, HINT_KEY, cap)

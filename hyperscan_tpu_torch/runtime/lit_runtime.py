@@ -21,6 +21,8 @@ from typing import Dict, List, Sequence, Set, Tuple
 
 import numpy as np
 
+from ..trace import count, spanned
+
 Record = Tuple[int, int, int, int]  # (block_idx, expr_idx, to_local, from_local)
 # from_local is 0 unless the pattern has HS_FLAG_SOM_LEFTMOST, in which
 # case it is the leftmost match start (reference: som/som_runtime.c)
@@ -188,6 +190,7 @@ def expand_confirm_classes(
     return fids[idx], np.repeat(pos_a, counts)
 
 
+@spanned("hs.verify")
 def verify_pairs(
     lit, corpus: np.ndarray, block_starts: np.ndarray,
     fid_a: np.ndarray, p_a: np.ndarray,
@@ -571,6 +574,7 @@ def finish_literal_scan(
     )
 
 
+@spanned("hs.windows")
 def finish_confirmed(
     db, corpus: np.ndarray, block_starts: np.ndarray,
     block_ends: np.ndarray, fid_a: np.ndarray, p_a: np.ndarray,
@@ -1582,6 +1586,7 @@ def _lead_connect_role(
                            A_aid, block_starts, block_ends)
 
 
+@spanned("hs.chains")
 def resolve_chains(
     lit, corpus: np.ndarray, block_starts: np.ndarray,
     block_ends: np.ndarray, block_anchored: np.ndarray,
@@ -1607,11 +1612,13 @@ def resolve_chains(
     active = {e for (e, _r) in chain_windows if e in lit.chains}
     if chain_ctx:
         active |= {e for (_b, e, _r) in chain_ctx if e in lit.chains}
+    if not streaming:  # a final role without windows can't match
+        active = {e for e in active
+                  if (e, lit.chains[e].num_roles - 1) in chain_windows}
+    count("chain_exprs", len(active))
     for eidx in sorted(active):
         ch = lit.chains[eidx]
         R = ch.num_roles
-        if not streaming and (eidx, R - 1) not in chain_windows:
-            continue  # final role can't match in this block scan
 
         spans0 = _merge_spans(list(chain_windows.get((eidx, 0), [])))
         ends: Dict[int, np.ndarray] = {}

@@ -25,6 +25,7 @@ from ..flags import (
     UNBOUNDED,
     base_mode,
 )
+from ..trace import span, spanned
 
 Match = Tuple[int, int, int]  # (external id, from, to)
 
@@ -1006,6 +1007,7 @@ def scan_block(
         scratch.in_use = False
 
 
+@spanned("hs.scan_batch")
 def scan_batch(
     db: Database,
     blocks: Sequence[bytes],
@@ -1058,7 +1060,8 @@ def scan_batch(
         return out  # type: ignore[return-value]
     all_recs = scan_blocks_raw(db, blocks, scratch.capacity, mesh=mesh,
                                device=device)
-    return [
-        finalize_reports(db, recs, end_offset=len(blocks[i]))[0]
-        for i, recs in enumerate(all_recs)
-    ]
+    with span("hs.reports"):
+        return [
+            finalize_reports(db, recs, end_offset=len(blocks[i]))[0]
+            for i, recs in enumerate(all_recs)
+        ]

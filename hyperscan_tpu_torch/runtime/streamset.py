@@ -48,6 +48,7 @@ from ..flags import HS_MODE_STREAM, HS_MODE_VECTORED, base_mode, \
     som_horizon_span
 from ..flags import (HS_FLAG_QUIET, HS_FLAG_SINGLEMATCH,
                      HS_FLAG_SOM_LEFTMOST, HS_OFFSET_PAST_HORIZON)
+from ..trace import spanned
 from .lit_runtime import LEAD_BOUNDARY
 from .stream import Stream, _engine_pass, _update_chain_state, \
     history_required, stream_device
@@ -259,6 +260,7 @@ class _WriteHandle:
 
 
 
+@spanned("hs.write_start")
 def streamset_write_start(
     db: Database,
     ss: StreamSet,
@@ -384,6 +386,7 @@ def streamset_write_start(
     return h
 
 
+@spanned("hs.write_finish")
 def streamset_write_finish(
     db: Database,
     ss: StreamSet,

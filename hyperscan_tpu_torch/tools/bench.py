@@ -19,9 +19,10 @@ then per scan `confirm_finish` -> `verify_pairs` -> `finish_confirmed`
 -> `RecordSink` -> `finalize_reports`. Unlike the reference, the corpora
 are made on the host (`benchdata.gen_corpus`) and uploaded inside the
 timed loop. Each configuration also prints on stderr, beside the card,
-its families and re-dispatches, the seconds of each stage of one scan
-(synchronized, outside the timed loop) and the same corpora through
-`scan_batch`, timed the same way.
+its families and re-dispatches and the same corpora through
+`scan_batch`, timed the same way. The seconds of each stage are in any
+`torch.profiler` trace of these scans, as the `hs.*` spans of
+`hyperscan_tpu_torch.trace`.
 
 Every function scans on `device`, the CUDA card unless the caller passes
 another ("cpu" runs the kernels' plain versions); a missing card raises.
@@ -123,26 +124,19 @@ def bench_db(n_patterns: int, flags: int = 0, drop_shapes=(),
 # --- block scans (bench.py:138-262) -------------------------------------------
 
 
-def _finish(db, handle, corpus: np.ndarray, got, lap=None) -> list:
+def _finish(db, handle, corpus: np.ndarray, got) -> list:
     """The host half of one started scan of one block, as scan_batch runs
     it: the pairs sorted and expanded, verified, the windows validated,
-    the reports made; `lap(stage)`, if given, after each stage. Returns
-    the match list."""
-    lap = lap or (lambda _stage: None)
+    the reports made. Returns the match list."""
     n = len(corpus)
     starts, ends = np.zeros(1, np.int64), np.asarray([n], np.int64)
     f, p = F.confirm_finish(handle, got=got)
-    lap("sort_expand")
     f, p = verify_pairs(db.lit, corpus, starts, f, p)
-    lap("verify_pairs")
     recs = finish_confirmed(db, corpus, starts, ends, f, p)
-    lap("windows")
     sink = RecordSink()
     for (_b, e, to, frm) in recs:
         sink.add(e, to, frm)
-    out = finalize_reports(db, sink.materialize(n), end_offset=n)[0]
-    lap("reports")
-    return out
+    return finalize_reports(db, sink.materialize(n), end_offset=n)[0]
 
 
 def scan_chain(db, corpora, dev) -> list:
@@ -153,31 +147,6 @@ def scan_chain(db, corpora, dev) -> list:
                for c in corpora]
     gots = F.confirm_fetch_many(handles)
     return [_finish(db, h, c, g) for h, c, g in zip(handles, corpora, gots)]
-
-
-def chain_stages(db, corpus: np.ndarray, dev) -> dict:
-    """Seconds of each stage of one scan of the chain, the stages one by
-    one with the device synchronized after each. "windows" is
-    finish_confirmed, where the SOM validators' back-scans run."""
-    out = {}
-    _sync(dev)
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        _sync(dev)
-        now = time.perf_counter()
-        out[name] = now - t
-        t = now
-
-    corpus_t = corpus_tensor(corpus, dev)
-    lap("upload")
-    h = F.confirm_start(corpus_t, db.lit, len(corpus))
-    lap("device_filter_confirm")
-    (got,) = F.confirm_fetch_many([h])
-    lap("fetch")
-    _finish(db, h, corpus, got, lap)
-    return out
 
 
 def run_config(n_patterns: int, device="cuda", flags: int = 0,
@@ -233,7 +202,6 @@ def run_config(n_patterns: int, device="cuda", flags: int = 0,
     lists, dt = _timed(dev, lambda: scan_chain(db, timed, dev))
     ran = {f: st.dispatches[f] - before[f] for f in F.FAMILIES
            if st.dispatches[f] > before[f]}
-    stages = chain_stages(db, timed[0], dev)
     batch, dt_b = _timed(dev, lambda: [
         ht.scan_batch(db, [c], device=dev)[0] for c in timed])
     if batch != lists:
@@ -246,8 +214,7 @@ def run_config(n_patterns: int, device="cuda", flags: int = 0,
         "matches": total, "compile_s": t_compile,
         "warm_families": warm_fams, "families": ran,
         "redispatches": sum(ran.values()) - iters,
-        "scan_batch_gb_s": n * iters / dt_b / 1e9, "scan_batch_s": dt_b,
-        "stages": stages}))
+        "scan_batch_gb_s": n * iters / dt_b / 1e9, "scan_batch_s": dt_b}))
     if out is not None:
         out.extend(lists)
     return gbps, total, t_compile
