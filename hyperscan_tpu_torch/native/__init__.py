@@ -172,8 +172,9 @@ def _engine_c_arrays(engine):
     return engine._c_arrays
 
 
-def dfa_scan_batch_native(engine, data, lengths, init_states):
-    """Returns (hits per row [(pos, aid)...], final_states) or None."""
+def dfa_scan_batch_native(engine, data, lengths, init_states, flat=False):
+    """Returns (hits per row [(pos, aid)...], final_states) or None; with
+    `flat`, the hits as (row, pos, aid) arrays ordered by row."""
     lib = get_lib()
     if lib is None:
         return None
@@ -196,6 +197,10 @@ def dfa_scan_batch_native(engine, data, lengths, init_states):
         if n <= cap:
             break
         cap = 1 << int(n - 1).bit_length()
+    if flat:
+        n = int(n)
+        return (out_row[:n].astype(np.int64), out_pos[:n].astype(np.int64),
+                out_aid[:n].astype(np.int64)), states_run
     return _split_hits(int(n), out_row, out_pos, out_aid, B), states_run
 
 

@@ -17,6 +17,8 @@ asymmetry the reference exploits with its confirm step).
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 from typing import Dict, List, Sequence, Set, Tuple
 
 import numpy as np
@@ -608,7 +610,7 @@ def finish_confirmed(
         if chain_ctx and not eod_only:
             recs |= resolve_chains(
                 lit, corpus, block_starts, block_ends, block_anchored,
-                block_final, {},
+                block_final, (np.zeros(0, np.int64),) * 5,
                 chain_ctx=chain_ctx, chain_out=chain_out,
                 ranges_out=ranges_out,
             )
@@ -688,16 +690,12 @@ def finish_confirmed(
             b_p[ma], bs_p[ma], be_p[ma], block_final)
 
     # kinds 2..65: chain roles (SEG <gap> SEG <gap> ...)
-    mm = (kind_p >= 2) & (kind_p < ANCHOR_KIND_BASE)
-    chain_windows: Dict[Tuple[int, int], List[Tuple[int, int, int]]] = {}
-    for i in np.flatnonzero(mm).tolist():
-        chain_windows.setdefault(
-            (int(eidx_p[i]), int(kind_p[i]) - 2), []
-        ).append((int(ws_p[i]), int(we_p[i]), int(b_p[i])))
-    if (chain_windows or chain_ctx) and not eod_only:
+    mm = np.flatnonzero((kind_p >= 2) & (kind_p < ANCHOR_KIND_BASE))
+    if (len(mm) or chain_ctx) and not eod_only:
         recs |= resolve_chains(
             lit, corpus, block_starts, block_ends, block_anchored,
-            block_final, chain_windows,
+            block_final,
+            (eidx_p[mm], kind_p[mm] - 2, ws_p[mm], we_p[mm], b_p[mm]),
             chain_ctx=chain_ctx, chain_out=chain_out,
             ranges_out=ranges_out,
         )
@@ -817,6 +815,23 @@ def _packed_validators(lit):
     return lit._vpack
 
 
+def _merge_windows(g, b, ws, we, ncorp: int):
+    """Merge the overlapping or touching windows [ws, we) of each (g, b)
+    group: sort, then a running-max scan with per-group offsets so that
+    groups cannot interact. Returns the merged (g, b, ws, we), sorted."""
+    o = np.lexsort((ws, b, g))
+    g, b, ws, we = g[o], b[o], ws[o], we[o]
+    new = np.ones(len(g), dtype=bool)
+    new[1:] = (g[1:] != g[:-1]) | (b[1:] != b[:-1])
+    off = (np.cumsum(new) - 1) * np.int64(ncorp + (1 << 12))
+    runmax = np.maximum.accumulate(we + off)
+    head = np.ones(len(g), dtype=bool)
+    head[1:] = ws[1:] + off[1:] > runmax[:-1]
+    hp = np.flatnonzero(head)
+    we = np.maximum.reduceat(we, hp) if len(hp) else we
+    return g[hp], b[hp], ws[hp], we
+
+
 def validate_windows_batched(
     lit, corpus: np.ndarray,
     eidx_w: np.ndarray, ws: np.ndarray, we: np.ndarray, b_w: np.ndarray,
@@ -843,25 +858,8 @@ def validate_windows_batched(
     (vid_arr, trans_all, acc_all, acce_all, b2c_all, start_g, float_g,
      shim) = pack
 
-    # merge overlapping windows per (pattern, block): sort, then a
-    # running-max scan with per-group offsets so groups cannot interact
-    order = np.lexsort((ws, b_w, eidx_w))
-    e_s, ws_s, we_s, b_s = eidx_w[order], ws[order], we[order], b_w[order]
     ncorp = corpus.shape[0]
-    BIG = np.int64(ncorp + (1 << 12))
-    newgrp = np.ones(len(e_s), dtype=bool)
-    newgrp[1:] = (e_s[1:] != e_s[:-1]) | (b_s[1:] != b_s[:-1])
-    gid = np.cumsum(newgrp) - 1
-    ws2 = ws_s + gid * BIG
-    we2 = we_s + gid * BIG
-    runmax = np.maximum.accumulate(we2)
-    head = np.ones(len(e_s), dtype=bool)
-    head[1:] = ws2[1:] > runmax[:-1]
-    hpos = np.flatnonzero(head)
-    m_ws = ws_s[hpos]
-    m_we = np.maximum.reduceat(we_s, hpos)
-    m_e = e_s[hpos]
-    m_b = b_s[hpos]
+    m_e, m_b, m_ws, m_we = _merge_windows(eidx_w, b_w, ws, we, ncorp)
     lens = m_we - m_ws
     vids = vid_arr[m_e]
     bs = block_starts[m_b]
@@ -1172,197 +1170,18 @@ def chain_ctx_record(lit, eidx: int, r: int, c_ends, c_run, base_abs):
     return (np.asarray(c_ends, dtype=np.int64), c_run, base_abs)
 
 
-def _merge_carried(ends, chain_ctx, eidx, boundary, block_starts):
-    """Merge streaming carried evidence for one gap boundary into the
-    flat end sets; returns (ends, carried_pre) where carried_pre holds
-    pre-extent ends per block as (sorted_abs, run_start, base_abs)."""
-    carried_pre: Dict[int, Tuple[np.ndarray, int, int]] = {}
-    if chain_ctx:
-        for (b, ce, rr), (c_ends, c_run, base_abs) in chain_ctx.items():
-            if ce != eidx or rr != boundary:
-                continue
-            c_ends = np.asarray(c_ends, dtype=np.int64)
-            bs = int(block_starts[b])
-            in_ext = c_ends[c_ends >= base_abs] - base_abs + bs
-            if len(in_ext):
-                cur = ends.get(b)
-                ends[b] = np.unique(in_ext) if cur is None else \
-                    np.unique(np.concatenate([cur, in_ext]))
-            older = c_ends[c_ends < base_abs]
-            if len(older):
-                carried_pre[b] = (older, c_run, base_abs)
-    return ends, carried_pre
-
-
-def _role_matches(role, corpus, spans):
-    """Forward lockstep scan of one role over merged windows.
-
-    Returns (win, starts_w, blks_w, A_i, A_t, A_aid): accepts at window
-    i, byte index t (0-based within window), with accept-set id aid.
-    """
-    nw = len(spans)
-    starts_w = np.asarray([s for (s, _e, _b) in spans], dtype=np.int64)
-    ends_w = np.asarray([e for (_s, e, _b) in spans], dtype=np.int64)
-    blks_w = np.asarray([b for (_s, _e, b) in spans], dtype=np.int64)
-    lens = ends_w - starts_w
-    wmax = int(lens.max())
-    win = np.zeros((nw, wmax), dtype=np.uint8)
-    for i, (s, e, _b) in enumerate(spans):
-        win[i, : e - s] = corpus[s:e]
-    from .smallwrite import dfa_scan_host
-
-    fwd = role.fwd
-    hits, _finals = dfa_scan_host(
-        fwd, win, lens.astype(np.int32),
-        init_states=np.full(nw, fwd.float_state, dtype=np.int32),
-    )
-    ai: List[np.ndarray] = []
-    at: List[np.ndarray] = []
-    aa: List[np.ndarray] = []
-    for i in range(nw):
-        hp, hv = hits[i]
-        if len(hp):
-            ai.append(np.full(len(hp), i, dtype=np.int64))
-            at.append(hp.astype(np.int64))
-            aa.append(hv.astype(np.int64))
-    if not ai:
-        z = np.zeros(0, dtype=np.int64)
-        return win, starts_w, blks_w, z, z, z
-    return (win, starts_w, blks_w, np.concatenate(ai), np.concatenate(at),
-            np.concatenate(aa))
-
-
-def _role_starts(role, win, A_i, A_t):
-    """Batched reverse scans: for each accept pair (window A_i[k], end
-    byte A_t[k]) collect every possible segment start (window-relative).
-    Returns (pair_idx, start_j) arrays."""
-    rev = role.rev
-    trans = rev.trans
-    b2c = rev.byte_to_class.astype(np.int64)
-    accid = rev.accept_id
-    dead = int(rev.float_state)
-    P = len(A_i)
-    states = np.full(P, rev.start_state, dtype=np.int64)
-    out_k: List[np.ndarray] = []
-    out_j: List[np.ndarray] = []
-    maxlen = int(A_t.max()) + 1 if P else 0
-    for step in range(maxlen):
-        j = A_t - step
-        active = (j >= 0) & (states != dead)
-        if not active.any():
-            break
-        byte = win[A_i, np.maximum(j, 0)]
-        nxt = trans[states, b2c[byte]]
-        states = np.where(active, nxt, states)
-        aids = np.where(active, accid[states], 0)
-        nz = np.flatnonzero(aids)
-        for aid in np.unique(aids[nz]):
-            if not aid:
-                continue
-            sel = nz[aids[nz] == aid]
-            for (_e, adj) in rev.expand_set(int(aid)):
-                out_k.append(sel)
-                out_j.append(j[sel] + adj)
-    if not out_k:
-        z = np.zeros(0, dtype=np.int64)
-        return z, z
-    return np.concatenate(out_k), np.concatenate(out_j)
-
-
-def _connect_role(
-    role, corpus, spans, prev_ends, carried_pre, gap_bits, glo, ghi,
-    lastbad_cache, block_starts, block_ends,
-) -> Dict[int, np.ndarray]:
-    """Role matches whose start connects to a previous-boundary end
-    through the gap: returns per-block sorted arrays of match ends."""
-    lastbad = _lastbad(corpus, gap_bits, lastbad_cache)
-    win, starts_w, blks_w, A_i, A_t, A_aid = _role_matches(
-        role, corpus, spans
-    )
-    if len(A_i) == 0:
-        return {}
-    S_k, S_j = _role_starts(role, win, A_i, A_t)
-    if len(S_k) == 0:
-        return {}
-    s_flat = starts_w[A_i[S_k]] + S_j
-    blk_s = blks_w[A_i[S_k]]
-    conn_pair = np.zeros(len(A_i), dtype=bool)
-    for b in np.unique(blk_s):
-        m = blk_s == b
-        s = s_flat[m]
-        bs = int(block_starts[b])
-        prevb = np.where(s > 0, lastbad[np.maximum(s - 1, 0)], -1)
-        p_lo = np.maximum(bs, prevb + 1)
-        if ghi is not None:
-            p_lo = np.maximum(p_lo, s - ghi)
-        p_hi = s - glo
-        conn = np.zeros(len(s), dtype=bool)
-        E = prev_ends.get(int(b))
-        if E is not None and len(E):
-            ok = p_hi >= p_lo
-            conn = ok & (
-                np.searchsorted(E, p_lo, side="left")
-                < np.searchsorted(E, p_hi, side="right")
-            )
-        C = carried_pre.get(int(b))
-        if C is not None:
-            c_ends, c_run, base_abs = C
-            # pre-extent evidence connects iff no bad byte precedes the
-            # start inside the extent (pruning guaranteed cleanliness up
-            # to the extent start)
-            clean = (s == bs) | (prevb < bs)
-            s_abs = base_abs + (s - bs)
-            pl = np.full_like(s_abs, c_run)
-            if ghi is not None:
-                pl = np.maximum(pl, s_abs - ghi)
-            ph = s_abs - glo
-            connc = clean & (ph >= pl) & (
-                np.searchsorted(c_ends, pl, side="left")
-                < np.searchsorted(c_ends, ph, side="right")
-            )
-            conn |= connc
-        kk = np.flatnonzero(m)[conn]
-        conn_pair[S_k[kk]] = True
-
-    return _emit_role_ends(role, conn_pair, starts_w, blks_w, A_i, A_t,
-                           A_aid, block_starts, block_ends)
-
-
-def _emit_role_ends(role, conn_pair, starts_w, blks_w, A_i, A_t, A_aid,
-                    block_starts, block_ends) -> Dict[int, np.ndarray]:
-    """Expand connected accept pairs into per-block sorted end arrays."""
-    if not conn_pair.any():
-        return {}
-    sel = np.flatnonzero(conn_pair)
-    base_e = starts_w[A_i[sel]] + A_t[sel] + 1
-    blks_e = blks_w[A_i[sel]]
-    aids_e = A_aid[sel]
-    out: Dict[int, List[np.ndarray]] = {}
-    fwd = role.fwd
-    for aid in np.unique(aids_e):
-        for (_e2, adj) in fwd.expand_set(int(aid)):
-            mm = aids_e == aid
-            e_fl = base_e[mm] + adj
-            bb = blks_e[mm]
-            okb = (e_fl >= block_starts[bb]) & (e_fl <= block_ends[bb])
-            for b in np.unique(bb[okb]):
-                out.setdefault(int(b), []).append(
-                    e_fl[okb][bb[okb] == b]
-                )
-    return {
-        b: np.unique(np.concatenate(parts)) for b, parts in out.items()
-    }
-
-
 def _ints_from_words(a: np.ndarray) -> list:
     """Combine a trailing little-endian uint64 word axis into Python
     ints (one per leading row). 1-D input is the legacy single-word
     layout of round-3 databases."""
-    a = np.ascontiguousarray(a.astype(np.uint64))
+    a = np.asarray(a).astype(np.uint64)
     if a.ndim == 1:
-        return [int(x) for x in a]
+        return a.tolist()
     flat = a.reshape(-1, a.shape[-1])
-    return [int.from_bytes(w.tobytes(), "little") for w in flat]
+    out = flat[:, 0].tolist()
+    for w in range(1, flat.shape[1]):
+        out = [x | (y << (64 * w)) for x, y in zip(out, flat[:, w].tolist())]
+    return out
 
 
 def _infix_tables(spec):
@@ -1476,114 +1295,393 @@ def lit_history_required(lit) -> int:
     return h
 
 
-def _resolve_infix_boundary(
-    lit, role, spec, eidx, bnd, corpus, spans, prev_ends,
-    block_starts, block_ends, chain_ctx, chain_out,
-) -> Dict[int, np.ndarray]:
-    """Resolve one general-gap boundary: role-r matches whose start
-    connects to a previous-boundary end through the infix NFA (forward
-    injection scan). Streaming (`chain_out` given) carries the infix
-    engine's state across writes: the NFA mask captured at the next
-    extent's start plus recent end positions whose factor context will
-    be trimmed out of the rescanable history (reference analogue:
-    LeftEngInfo infix stream state, rose_graph.h:140)."""
-    streaming = chain_out is not None
-    if spans:
-        win, starts_w, blks_w, A_i, A_t, A_aid = _role_matches(
-            role, corpus, spans
-        )
-        S_k, S_j = (_role_starts(role, win, A_i, A_t)
-                    if len(A_i) else (np.zeros(0, np.int64),) * 2)
-        s_flat = starts_w[A_i[S_k]] + S_j if len(S_k) else \
-            np.zeros(0, np.int64)
-        blk_s = blks_w[A_i[S_k]] if len(S_k) else np.zeros(0, np.int64)
-    else:
-        A_i = A_t = A_aid = starts_w = blks_w = np.zeros(0, np.int64)
-        S_k = s_flat = blk_s = np.zeros(0, np.int64)
-    carried: Dict[int, tuple] = {}
-    if chain_ctx:
-        for (b, e, rr), v in chain_ctx.items():
-            if e == eidx and rr == bnd:
-                carried[b] = v
-    touched = set(int(b) for b in prev_ends) | set(carried)
-    if len(blk_s):
-        touched |= set(int(b) for b in np.unique(blk_s))
-    conn_pair = np.zeros(len(A_i), dtype=bool)
-    hist_req = lit_history_required(lit) if streaming else None
-    for b in sorted(touched):
-        bs = int(block_starts[b])
-        be = int(block_ends[b])
-        E_set = set()
-        Ep = prev_ends.get(b)
-        if Ep is not None:
-            E_set |= set(int(x) for x in Ep)
-        mask0 = 0
-        if b in carried:
-            arr, cap_abs, base_abs = carried[b]
-            # plain-int path: arr[0] is the carried NFA mask, an
-            # arbitrary-width Python int (chain_ctx_record keeps infix
-            # records as lists — int64 arrays cannot hold wide masks)
-            lst = [int(x) for x in arr]
-            if lst:
-                mask0 = lst[0]
-                # carried recent ends, absolute -> flat local
-                E_set |= {bs + (x - base_abs) for x in lst[1:]}
-        m = blk_s == b
-        S_b = np.unique(s_flat[m]) if m.any() else np.zeros(0, np.int64)
-        E = np.asarray(sorted(E_set), dtype=np.int64)
-        if not len(E) and not mask0 and not streaming:
-            continue
-        capture_at = max(bs, be - hist_req) if streaming else None
-        ok, cap_mask = _infix_connect(
-            spec, corpus, E, S_b, be,
-            init_mask=mask0, init_pos=bs, capture_at=capture_at,
-        )
-        if streaming:
-            keeps = sorted(x for x in E_set if x >= capture_at)[-4096:]
-            chain_out[(b, eidx, bnd)] = (
-                "imask", int(cap_mask), keeps, int(capture_at))
-        if ok and m.any():
-            conn = np.asarray([int(x) in ok for x in s_flat[m]],
-                              dtype=bool)
-            conn_pair[S_k[np.flatnonzero(m)[conn]]] = True
-    return _emit_role_ends(role, conn_pair, starts_w, blks_w, A_i, A_t,
-                           A_aid, block_starts, block_ends)
+# boundary kinds: the gap a role's start connects through
+_B_NONE = 0   # role 0 without a leading gap (anchoring kept)
+_B_LEAD = 1   # role 0 after a leading gap-class run
+_B_CLASS = 2  # a single-class gap after role r-1
+_B_INFIX = 3  # a general-gap infix NFA after role r-1
+
+# carried evidence older than the extent lies at negative offsets from
+# its start; they are clamped to -_OLD_SPAN (every query bound lies
+# above it: gap bounds are small and ends below the run start are
+# dropped first)
+_OLD_SPAN = np.int64(1 << 40)
 
 
-def _lead_connect_role(
-    role, corpus, spans, gap_bits, glo, lead_floor,
-    lastbad_cache, block_starts, block_ends,
-) -> Dict[int, np.ndarray]:
-    """Role-0 matches preceded by a leading-gap class run of length >= glo
-    (Castle-prefix analogue). A bounded gap hi adds no end-set constraint:
-    any run of length >= glo contains an in-bounds sub-run ending at the
-    role start. `lead_floor[b]` is the flat-coords lower bound of the run
-    start when the run extends before the block/extent start (streaming
-    carried run; defaults to the block start)."""
-    lastbad = _lastbad(corpus, gap_bits, lastbad_cache)
-    win, starts_w, blks_w, A_i, A_t, A_aid = _role_matches(
-        role, corpus, spans
+@dataclasses.dataclass
+class _RolePack:
+    """Every chain role of a literal table set, packed (see
+    _packed_roles). Role ids k run over the chains in expression order,
+    roles left to right."""
+
+    rbase: np.ndarray   # [max_e+1] role id of a chain's role 0, else -1
+    nroles: np.ndarray  # [max_e+1] a chain's role count, else 0
+    role_e: np.ndarray  # [K] expression of each role
+    role_r: np.ndarray  # [K] index of each role within its chain
+    bkind: np.ndarray   # [K] _B_* kind of the gap before each role
+    bgap: np.ndarray    # [K] class (index into gaps) of a lead or class gap
+    glo: np.ndarray     # [K] that gap's least length
+    ghi: np.ndarray     # [K] its greatest, -1 = unbounded
+    fb2c: np.ndarray    # [K, 256] uint8 byte classes of the forward DFA
+    rb2c: np.ndarray    # [K, 256] uint8 byte classes of the reverse DFA
+    fstart: np.ndarray  # [K] global anchored start of the forward DFA
+    ffloat: np.ndarray  # [K] global float state of the forward DFA
+    rstart: np.ndarray  # [K] global start of the reverse DFA, -1 = none
+    tgap: np.ndarray    # [max_e+1] trailing-gap class, -1 = none
+    tlo: np.ndarray     # [max_e+1] trailing gap's least length
+    thi: np.ndarray     # [max_e+1] its greatest, -1 = unbounded
+    gaps: List[np.ndarray]  # distinct gap classes, [256] bool each
+    infix: Set[Tuple[int, int]]  # (expression, boundary) of infix gaps
+    shim: object        # packed tables for dfa_scan_host
+    set_off: np.ndarray  # [sets+1] global accept sets ...
+    set_adj: np.ndarray  # ... as adjusts alone (a role reports its chain)
+
+
+def _packed_roles(lit) -> "_RolePack":
+    """Every chain role's forward and reverse DFA packed into one global
+    table set (cached on `lit`, as _packed_validators packs the
+    validators), so that the roles of all chain expressions advance in
+    one lockstep scan per pass. Content-identical DFAs share a region;
+    accept sets keep only their adjusts, since a role reports its own
+    chain. Reference analogue: the Rose role graph's engines
+    (rose_graph.h), here table-packed across expressions."""
+    if hasattr(lit, "_rpack"):
+        return lit._rpack
+    eids = sorted(lit.chains)
+    max_e = eids[-1] if eids else -1
+    K = sum(lit.chains[e].num_roles for e in eids)
+    i64 = np.int64
+    rbase = np.full(max_e + 1, -1, i64)
+    nroles = np.zeros(max_e + 1, i64)
+    tgap = np.full(max_e + 1, -1, i64)
+    tlo = np.zeros(max_e + 1, i64)
+    thi = np.full(max_e + 1, -1, i64)
+    role_e, role_r, bkind = (np.zeros(K, i64) for _ in range(3))
+    bgap = np.full(K, -1, i64)
+    glo = np.zeros(K, i64)
+    ghi = np.full(K, -1, i64)
+    fb2c = np.zeros((K, 256), np.uint8)
+    rb2c = np.zeros((K, 256), np.uint8)
+    fstart, ffloat = np.zeros(K, i64), np.zeros(K, i64)
+    rstart = np.full(K, -1, i64)
+    gap_ids: Dict[bytes, int] = {}
+    gaps: List[np.ndarray] = []
+    infix: Set[Tuple[int, int]] = set()
+    regions: Dict[tuple, int] = {}
+    parts: List = []
+    nstates = 0
+
+    def gap_id(bits) -> int:
+        key = np.asarray(bits, bool).tobytes()
+        if key not in gap_ids:
+            gap_ids[key] = len(gaps)
+            gaps.append(np.asarray(bits, bool))
+        return gap_ids[key]
+
+    def place(eng) -> int:
+        nonlocal nstates
+        key = (eng.trans.shape, eng.trans.tobytes(),
+               eng.accept_id.tobytes(), eng.set_offsets.tobytes(),
+               eng.set_adjusts.tobytes())
+        base = regions.get(key)
+        if base is None:
+            base = regions[key] = nstates
+            parts.append(eng)
+            nstates += eng.trans.shape[0]
+        return base
+
+    k = 0
+    for e in eids:
+        ch = lit.chains[e]
+        rbase[e] = k
+        nroles[e] = ch.num_roles
+        inf = getattr(ch, "infix", None) or {}
+        infix |= {(e, int(bnd)) for bnd in inf}
+        if ch.trail is not None:
+            gi, lo, hi = ch.trail
+            tgap[e], tlo[e] = gap_id(ch.gap_bits[gi]), lo
+            thi[e] = -1 if hi is None else hi
+        for r, role in enumerate(ch.roles):
+            role_e[k], role_r[k] = e, r
+            if r == 0 and ch.lead is not None:
+                gi, lo, _hi = ch.lead  # a bounded hi adds no constraint
+                bkind[k], glo[k] = _B_LEAD, lo
+                bgap[k] = gap_id(ch.gap_bits[gi])
+            elif r == 0:
+                bkind[k] = _B_NONE
+            elif (r - 1) in inf:
+                bkind[k] = _B_INFIX
+            else:
+                bkind[k] = _B_CLASS
+                bgap[k] = gap_id(ch.gap_bits[r - 1])
+                glo[k] = ch.gap_lo[r - 1]
+                hi = ch.gap_hi[r - 1]
+                ghi[k] = -1 if hi is None else hi
+            base = place(role.fwd)
+            fb2c[k] = role.fwd.byte_to_class
+            fstart[k] = base + role.fwd.start_state
+            ffloat[k] = base + role.fwd.float_state
+            if role.rev is not None:
+                base = place(role.rev)
+                rb2c[k] = role.rev.byte_to_class
+                rstart[k] = base + role.rev.start_state
+            k += 1
+    cmax = max((p.trans.shape[1] for p in parts), default=1)
+    trans = np.zeros((nstates, cmax), np.int32)
+    acc = np.zeros(nstates, np.int32)
+    offs: List[np.ndarray] = []
+    adjs: List[np.ndarray] = [np.zeros(0, i64)]
+    base = nsets = nadj = 0
+    for p in parts:
+        S, C = p.trans.shape
+        trans[base:base + S, :C] = p.trans + base
+        acc[base:base + S] = np.where(p.accept_id > 0,
+                                      p.accept_id + nsets, 0)
+        so = p.set_offsets.astype(i64)
+        offs.append(so[:-1] + nadj)
+        adjs.append(p.set_adjusts.astype(i64))
+        base += S
+        nsets += len(so) - 1
+        nadj += int(so[-1])
+    import types
+
+    shim = types.SimpleNamespace(
+        trans=trans, byte_to_class=np.arange(256, dtype=np.int32),
+        accept_id=acc,
     )
-    if len(A_i) == 0:
-        return {}
-    S_k, S_j = _role_starts(role, win, A_i, A_t)
-    if len(S_k) == 0:
-        return {}
-    s_flat = starts_w[A_i[S_k]] + S_j
-    blk_s = blks_w[A_i[S_k]]
-    conn_pair = np.zeros(len(A_i), dtype=bool)
-    for b in np.unique(blk_s):
-        m = blk_s == b
-        s = s_flat[m]
-        bs = int(block_starts[b])
-        floor = int(lead_floor.get(int(b), bs))
-        prevb = np.where(s > 0, lastbad[np.maximum(s - 1, 0)], -1)
-        run_start = np.where(prevb >= bs, prevb + 1, floor)
-        conn = (s - run_start) >= glo
-        kk = np.flatnonzero(m)[conn]
-        conn_pair[S_k[kk]] = True
-    return _emit_role_ends(role, conn_pair, starts_w, blks_w, A_i, A_t,
-                           A_aid, block_starts, block_ends)
+    lit._rpack = _RolePack(
+        rbase=rbase, nroles=nroles, role_e=role_e, role_r=role_r,
+        bkind=bkind, bgap=bgap, glo=glo, ghi=ghi, fb2c=fb2c, rb2c=rb2c,
+        fstart=fstart, ffloat=ffloat, rstart=rstart, tgap=tgap, tlo=tlo,
+        thi=thi, gaps=gaps, infix=infix, shim=shim,
+        set_off=np.concatenate(offs + [np.asarray([nadj], i64)]),
+        set_adj=np.concatenate(adjs),
+    )
+    return lit._rpack
+
+
+def _scan_rows(pk: _RolePack, b2c: np.ndarray, corpus: np.ndarray,
+               k: np.ndarray, pos0: np.ndarray, lens: np.ndarray,
+               init: np.ndarray, reverse: bool):
+    """One packed pass: row i steps role k[i]'s DFA (classes b2c[k[i]])
+    from global state init[i] over lens[i] corpus bytes from pos0[i],
+    forwards, or backwards when `reverse`. Returns the accepts as flat
+    (row, step, set id) arrays. Rows reach the native scan in length
+    buckets, so padding is at most 2x."""
+    from .smallwrite import dfa_scan_host
+
+    count("chain_passes")
+    ncorp = corpus.shape[0]
+    out = []
+    lmax = int(lens.max()) if len(lens) else 0
+    lo, cap = 0, 16
+    while lo < lmax:
+        sel = np.flatnonzero((lens > lo) & (lens <= cap))
+        if len(sel):
+            off = np.arange(min(cap, lmax))
+            idx = pos0[sel, None] + (-off if reverse else off)
+            cls = b2c[k[sel, None], corpus[np.clip(idx, 0, ncorp - 1)]]
+            (hr, hp, ha), _st = dfa_scan_host(
+                pk.shim, cls, lens[sel].astype(np.int32),
+                init_states=init[sel].astype(np.int32), flat=True,
+            )
+            out.append((sel[hr], hp, ha))
+        lo, cap = cap, cap * 2
+    if not out:
+        z = np.zeros(0, np.int64)
+        return z, z, z
+    return tuple(np.concatenate(c) for c in zip(*out))
+
+
+def _expand(pk: _RolePack, aid: np.ndarray):
+    """Members of the accept sets `aid`: (index into aid, adjust)."""
+    lo = pk.set_off[aid]
+    cnt = pk.set_off[aid + 1] - lo
+    rep = np.repeat(np.arange(len(aid)), cnt)
+    idx = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt) + np.arange(len(rep))
+    return rep, pk.set_adj[idx]
+
+
+def _sorted_unique(e, b, p):
+    """(e, b, p) rows sorted, duplicates dropped."""
+    o = np.lexsort((p, b, e))
+    e, b, p = e[o], b[o], p[o]
+    keep = np.ones(len(e), bool)
+    keep[1:] = (e[1:] != e[:-1]) | (b[1:] != b[:-1]) | (p[1:] != p[:-1])
+    return e[keep], b[keep], p[keep]
+
+
+def _runs(e, b):
+    """Start and end indices of the runs of equal (e, b) rows."""
+    new = np.ones(len(e), bool)
+    new[1:] = (e[1:] != e[:-1]) | (b[1:] != b[:-1])
+    st = np.flatnonzero(new)
+    return st, np.append(st[1:], len(e))
+
+
+def _group_ids(nb: int, *ebs):
+    """Compact joint ids of (expression, block) keys, ordered as the
+    keys: one array of ids per (e, b) pair of arrays given."""
+    keys = [e * nb + b for (e, b) in ebs]
+    _u, inv = np.unique(np.concatenate(keys), return_inverse=True)
+    out, at = [], 0
+    for key in keys:
+        out.append(inv[at:at + len(key)].astype(np.int64))
+        at += len(key)
+    return out
+
+
+def _any_in(g, v, qg, lo, hi, span):
+    """Whether group qg holds a value of v in [lo, hi]: (g, v) sorted,
+    every v, lo and hi inside [0, span) where lo <= hi."""
+    codes = g * span + v
+    return (np.searchsorted(codes, qg * span + hi, side="right")
+            > np.searchsorted(codes, qg * span + lo, side="left"))
+
+
+def _prev_bad(pk, corpus, s, gap, cache):
+    """For starts s with gap classes `gap`: the last offset before s
+    whose byte is out of the class (-1 if none)."""
+    out = np.full(len(s), -1, np.int64)
+    for g in np.unique(gap).tolist():
+        m = gap == g
+        lb = _lastbad(corpus, pk.gaps[g], cache)
+        sm = s[m]
+        out[m] = np.where(sm > 0, lb[np.maximum(sm - 1, 0)], -1)
+    return out
+
+
+class _Carried:
+    """A write's carried chain context (streaming), split once by
+    boundary kind: leading-run floors, infix records and class-run end
+    evidence as flat rows."""
+
+    def __init__(self, pk: _RolePack, chain_ctx, block_starts):
+        nb = len(block_starts)
+        ne = len(pk.nroles)
+        lead_eb: List[int] = []
+        lead_floor: List[int] = []
+        self.infix: Dict[Tuple[int, int], Dict[int, tuple]] = {}
+        meta: List[Tuple[int, int, int, int, int]] = []
+        vals: List[np.ndarray] = []
+        for (b, e, bnd), rec in (chain_ctx or {}).items():
+            if e >= ne or not pk.nroles[e]:
+                continue
+            if bnd == LEAD_BOUNDARY:
+                _c, c_run, base_abs = rec
+                lead_eb.append(e * nb + b)
+                lead_floor.append(int(block_starts[b])
+                                  - (base_abs - int(c_run)))
+            elif (e, bnd) in pk.infix:
+                self.infix.setdefault((e, bnd), {})[b] = rec
+            else:
+                arr = np.asarray(rec[0], dtype=np.int64)
+                if len(arr):
+                    meta.append((e, bnd, b, int(rec[1]), int(rec[2])))
+                    vals.append(arr)
+        o = np.argsort(np.asarray(lead_eb, np.int64), kind="stable")
+        self.lead_eb = np.asarray(lead_eb, np.int64)[o]
+        self.lead_floor = np.asarray(lead_floor, np.int64)[o]
+        m = np.asarray(meta, np.int64).reshape(-1, 5)
+        cnt = np.asarray([len(v) for v in vals], np.int64)
+        # one row per carried end: e, boundary, block, end, run, base
+        self.ce, self.cbnd, self.cb = (np.repeat(m[:, i], cnt)
+                                       for i in range(3))
+        self.crun = np.repeat(m[:, 3], cnt)
+        self.cbase = np.repeat(m[:, 4], cnt)
+        self.cabs = np.concatenate(vals) if vals else np.zeros(0, np.int64)
+
+    def floors(self, eb: np.ndarray, default: np.ndarray) -> np.ndarray:
+        """Flat lower bound of a leading run carried into each (e, b)."""
+        if not len(self.lead_eb):
+            return default
+        i = np.minimum(np.searchsorted(self.lead_eb, eb),
+                       len(self.lead_eb) - 1)
+        return np.where(self.lead_eb[i] == eb, self.lead_floor[i], default)
+
+    def split(self, bnd_of_e: np.ndarray, block_starts: np.ndarray):
+        """Class-run evidence of the boundary bnd_of_e[e] of each chain
+        (-1 = none): its ends inside the extent in flat offsets (e, b,
+        pos), and the older ones that may still connect (e, b, end, run,
+        base), sorted by (e, b, end)."""
+        sel = bnd_of_e[self.ce] == self.cbnd
+        ce, cb, ca = self.ce[sel], self.cb[sel], self.cabs[sel]
+        crun, cbase = self.crun[sel], self.cbase[sel]
+        inx = ca >= cbase
+        new = (ce[inx], cb[inx], ca[inx] - cbase[inx] + block_starts[cb[inx]])
+        old = ~inx & (ca >= crun)
+        o = np.lexsort((ca[old], cb[old], ce[old]))
+        older = tuple(a[old][o] for a in (ce, cb, ca, crun, cbase))
+        return new, older
+
+
+def _trail_ranges(pk, corpus, e, b, e0, run_end, block_starts, block_ends):
+    """Trailing-gap match ranges (MPV-puff analogue): every offset that
+    the gap-class run after a final-role end e0 covers within the gap's
+    bounds, the run ending at run_end. Overlapping and adjacent ranges of
+    one (e, b) coalesce. Returns (e, b, lo, hi) flat, sorted."""
+    bs, be = block_starts[b], block_ends[b]
+    hi = np.minimum(run_end, be)
+    bounded = pk.thi[e] >= 0
+    hi = np.where(bounded, np.minimum(hi, e0 + pk.thi[e]), hi)
+    lo = np.maximum(e0 + pk.tlo[e], bs)
+    ok = hi >= lo
+    e, b, lo, hi = e[ok], b[ok], lo[ok], hi[ok]
+    if not len(e):
+        return e, b, lo, hi
+    o = np.lexsort((hi, lo, b, e))
+    e, b, lo, hi = e[o], b[o], lo[o], hi[o]
+    span = np.int64(corpus.shape[0] + 2)
+    (g,) = _group_ids(len(block_starts), (e, b))
+    runmax = np.maximum.accumulate(g * span + hi)
+    head = np.ones(len(e), bool)
+    head[1:] = g[1:] * span + lo[1:] > runmax[:-1] + 1
+    hp = np.flatnonzero(head)
+    return e[hp], b[hp], lo[hp], np.maximum.reduceat(hi, hp)
+
+
+def _next_bad(pk, corpus, p, gap, cache):
+    """For offsets p with gap classes `gap`: the first offset at or
+    after p whose byte is out of the class (p itself past the corpus)."""
+    n = corpus.shape[0]
+    out = p.copy()
+    for g in np.unique(gap).tolist():
+        m = (gap == g) & (p < n)
+        if m.any():
+            out[m] = _firstbad(corpus, pk.gaps[g], cache)[p[m]]
+    return out
+
+
+def _trail(pk, corpus, r, fin, carried, trail_e, block_starts, block_ends,
+           cache, ranges_out, recs) -> None:
+    """Trailing gaps of the chains whose final role is r (`trail_e`):
+    final-role ends `fin` and the pending ends carried from earlier
+    writes fire every offset their gap-class run covers."""
+    if not trail_e.any():
+        return
+    new, older = carried.split(np.where(trail_e, r, -1), block_starts)
+    e, b, e0 = _sorted_unique(*(np.concatenate([a, n])
+                                for a, n in zip(fin, new)))
+    run = _next_bad(pk, corpus, e0, pk.tgap[e], cache)
+    # pre-extent pending ends: the run is alive through the carried
+    # region (pruned by its run start) into this extent's prefix
+    ce, cb, ca, _crun, cbase = older
+    cbs = block_starts[cb]
+    e = np.concatenate([e, ce])
+    b = np.concatenate([b, cb])
+    e0 = np.concatenate([e0, cbs + (ca - cbase)])
+    run = np.concatenate([run, _next_bad(pk, corpus, cbs, pk.tgap[ce],
+                                         cache)])
+    e, b, lo, hi = _trail_ranges(pk, corpus, e, b, e0, run, block_starts,
+                                 block_ends)
+    bs = block_starts[b]
+    if ranges_out is not None:
+        ranges_out.extend(zip(b.tolist(), e.tolist(), (lo - bs).tolist(),
+                              (hi - bs).tolist()))
+        return
+    for bi, ei, l, h, s in zip(b.tolist(), e.tolist(), lo.tolist(),
+                               hi.tolist(), bs.tolist()):
+        recs.update((bi, ei, t - s, 0) for t in range(l, h + 1))
 
 
 @spanned("hs.chains")
@@ -1591,163 +1689,257 @@ def resolve_chains(
     lit, corpus: np.ndarray, block_starts: np.ndarray,
     block_ends: np.ndarray, block_anchored: np.ndarray,
     block_final: np.ndarray,
-    chain_windows: Dict[Tuple[int, int], List[Tuple[int, int, int]]],
+    chain_windows: Tuple[np.ndarray, ...],
     chain_ctx: Dict = None, chain_out: Dict = None,
     ranges_out: List = None,
 ) -> Set[Record]:
-    """Multi-segment chain resolution, roles left to right.
+    """Multi-segment chain resolution over all chain expressions at once.
 
-    `chain_windows[(eidx, r)]` holds candidate windows for role r.
-    `chain_ctx[(b, eidx, r)]` (streaming) carries boundary-r end evidence
-    as `(ends_abs, run_start_abs, base_abs)`; boundary LEAD_BOUNDARY
-    carries the leading-gap run, boundary R-1 carries trailing-gap
-    pending ends. `chain_out[(b, eidx, r)]` receives this write's flat
-    boundary ends for the state update. Trailing-gap dense match ends are
-    appended to `ranges_out` as (b, eidx, lo_local, hi_local) when given,
-    else expanded into the returned records.
+    `chain_windows` = (eidx, r, ws, we, b) arrays: a candidate window of
+    role r of chain eidx in block b. `chain_ctx[(b, eidx, r)]`
+    (streaming) carries boundary-r end evidence as `(ends_abs,
+    run_start_abs, base_abs)`; boundary LEAD_BOUNDARY carries the
+    leading-gap run, boundary R-1 carries trailing-gap pending ends, an
+    infix boundary its NFA mask and recent ends. `chain_out[(b, eidx,
+    r)]` receives this write's flat boundary ends for the state update
+    (an "imask" record at an infix boundary). Trailing-gap dense match
+    ends are appended to `ranges_out` as (b, eidx, lo_local, hi_local)
+    when given, else expanded into the returned records.
+
+    The role scans do not depend on the previous role's ends, so they
+    run as two packed passes over every active (expression, role): a
+    forward pass over the merged windows (role matches; role 0 keeps its
+    anchoring) and a reverse pass from every match end of a role that
+    connects through a gap (role starts). The connection then runs role
+    position by role position, vectorized across expressions by
+    (expression, block) keys; an infix gap runs its injection scan per
+    (expression, block).
     """
     recs: Set[Record] = set()
-    lastbad_cache: Dict = {}
+    pk = _packed_roles(lit)
     streaming = chain_out is not None
-    active = {e for (e, _r) in chain_windows if e in lit.chains}
+    nb = len(block_starts)
+    w_e, w_r, w_s, w_t, w_b = (np.asarray(a, np.int64)
+                               for a in chain_windows)
+    ne = len(pk.nroles)
+    chain = w_e < ne
+    chain[chain] = pk.nroles[w_e[chain]] > 0
+    w_e, w_r, w_s, w_t, w_b = (a[chain] for a in (w_e, w_r, w_s, w_t, w_b))
+    carried = _Carried(pk, chain_ctx, block_starts)
+    active = set(np.unique(w_e).tolist())
     if chain_ctx:
-        active |= {e for (_b, e, _r) in chain_ctx if e in lit.chains}
+        active |= {e for (_b, e, _r) in chain_ctx
+                   if e < ne and pk.nroles[e]}
     if not streaming:  # a final role without windows can't match
-        active = {e for e in active
-                  if (e, lit.chains[e].num_roles - 1) in chain_windows}
+        active &= set(np.unique(w_e[w_r == pk.nroles[w_e] - 1]).tolist())
     count("chain_exprs", len(active))
-    for eidx in sorted(active):
-        ch = lit.chains[eidx]
-        R = ch.num_roles
+    if not active:
+        return recs
+    act = np.zeros(ne, bool)
+    act[list(active)] = True
+    keep = act[w_e]
+    w_k = pk.rbase[w_e[keep]] + w_r[keep]
+    w_s, w_t, w_b = w_s[keep], w_t[keep], w_b[keep]
 
-        spans0 = _merge_spans(list(chain_windows.get((eidx, 0), [])))
-        ends: Dict[int, np.ndarray] = {}
-        if spans0 and ch.lead is not None:
-            gi, glo, _ghi = ch.lead
-            lead_floor: Dict[int, int] = {}
-            if chain_ctx:
-                for (b, ce, rr), (_ce2, c_run, base_abs) in chain_ctx.items():
-                    if ce == eidx and rr == LEAD_BOUNDARY:
-                        bs = int(block_starts[b])
-                        lead_floor[b] = bs - (base_abs - int(c_run))
-            ends = _lead_connect_role(
-                ch.roles[0], corpus, spans0, ch.gap_bits[gi], glo,
-                lead_floor, lastbad_cache, block_starts, block_ends,
-            )
-        elif spans0:
-            pre_recs = validate_windows(
-                ch.roles[0].fwd, eidx, corpus, spans0, block_starts,
-                block_ends, block_anchored, np.zeros_like(block_final),
-            )
-            tmp: Dict[int, List[int]] = {}
-            for (b, _e, to_local, _f) in pre_recs:
-                tmp.setdefault(b, []).append(int(block_starts[b]) + to_local)
-            for b, es in tmp.items():
-                ends[b] = np.asarray(sorted(set(es)), dtype=np.int64)
-        if streaming and R > 1:
-            for b, arr in ends.items():
-                chain_out[(b, eidx, 0)] = arr
+    m_k, m_b, m_s, m_t = _merge_windows(w_k, w_b, w_s, w_t, corpus.shape[0])
+    m_bs = block_starts[m_b]
 
-        for r in range(1, R):
-            spans = _merge_spans(list(chain_windows.get((eidx, r), [])))
-            inf = ch.infix.get(r - 1) if getattr(ch, "infix", None) \
-                else None
-            if inf is not None:
-                # general-gap boundary (carried state = NFA mask, not
-                # class-run evidence — _merge_carried does not apply):
-                # runs even without new windows, so the streaming mask
-                # advances through every write
-                new_ends = _resolve_infix_boundary(
-                    lit, ch.roles[r], inf, eidx, r - 1, corpus, spans,
-                    ends, block_starts, block_ends, chain_ctx, chain_out,
-                )
-                ends = new_ends
-                if r < R - 1 and streaming:
-                    for b, arr in new_ends.items():
-                        chain_out[(b, eidx, r)] = arr
-                if not streaming and not ends and r < R - 1:
-                    break
-                continue
-            ends, carried_pre = _merge_carried(
-                ends, chain_ctx, eidx, r - 1, block_starts
-            )
-            if (not ends and not carried_pre) or not spans:
-                new_ends: Dict[int, np.ndarray] = {}
-            else:
-                new_ends = _connect_role(
-                    ch.roles[r], corpus, spans, ends, carried_pre,
-                    ch.gap_bits[r - 1], ch.gap_lo[r - 1], ch.gap_hi[r - 1],
-                    lastbad_cache, block_starts, block_ends,
-                )
-            if r < R - 1 and streaming:
-                for b, arr in new_ends.items():
-                    chain_out[(b, eidx, r)] = arr
-            ends = new_ends
-            if not streaming and not ends and r < R - 1:
-                break
+    # pass 1: every role's matches (accept pairs: window row, byte index)
+    kind = pk.bkind[m_k]
+    init = np.where((kind == _B_NONE) & (m_s == m_bs) & block_anchored[m_b],
+                    pk.fstart[m_k], pk.ffloat[m_k])
+    f_row, f_t, f_aid = (_scan_rows(pk, pk.fb2c, corpus, m_k, m_s,
+                                    m_t - m_s, init, reverse=False)
+                         if len(m_k) else (np.zeros(0, np.int64),) * 3)
+    f_k = m_k[f_row]
+    f_e, f_r, f_b = pk.role_e[f_k], pk.role_r[f_k], m_b[f_row]
+    f_end = m_s[f_row] + f_t  # flat offset of the match's last byte
 
-        # final-role ends -> match reports
-        if ch.trail is None:
-            for b, arr in ends.items():
-                bs = int(block_starts[b])
-                for e in arr.tolist():
-                    recs.add((b, eidx, e - bs, 0))
-            continue
+    # pass 2: every start of each match of a role after a gap
+    pair = np.flatnonzero(pk.bkind[f_k] != _B_NONE)
+    if len(pair):
+        r_row, r_step, r_aid = _scan_rows(
+            pk, pk.rb2c, corpus, f_k[pair], f_end[pair], f_t[pair] + 1,
+            pk.rstart[f_k[pair]], reverse=True)
+        rep, adj = _expand(pk, r_aid)
+        s_pair = pair[r_row[rep]]  # index into the f_* arrays
+        s_pos = f_end[s_pair] - r_step[rep] + adj
+    else:
+        s_pair = s_pos = np.zeros(0, np.int64)
+    s_e, s_r, s_b = f_e[s_pair], f_r[s_pair], f_b[s_pair]
 
-        # trailing gap (MPV-puff analogue): every offset the class run
-        # covers in [lo, hi] past a final-role end is a match end
-        gi, glo, ghi = ch.trail
+    def ends_of(hits):
+        """Flat ends (e, b, pos) of the matches f_*[hits], sorted."""
+        rep, adj = _expand(pk, f_aid[hits])
+        h = hits[rep]
+        pos = f_end[h] + 1 + adj
+        b = f_b[h]
+        ok = (pos >= block_starts[b]) & (pos <= block_ends[b])
+        return _sorted_unique(f_e[h][ok], b[ok], pos[ok])
+
+    def write_out(ends, r):
+        e, b, p = ends
+        st, en = _runs(e, b)
+        for i, j in zip(st.tolist(), en.tolist()):
+            chain_out[(int(b[i]), int(e[i]), r)] = p[i:j]
+
+    lastbad_cache: Dict = {}
+    hist_req = lit_history_required(lit) if streaming else None
+    conn = np.zeros(len(f_e), bool)  # match connected to its left context
+    z = np.zeros(0, np.int64)
+    ends = (z, z, z)
+    R = pk.nroles
+    for r in range(int(R[act].max())):
+        at_r = np.flatnonzero(f_r == r)
+        if r == 0:
+            conn[at_r[pk.bkind[f_k[at_r]] == _B_NONE]] = True
+            sel = np.flatnonzero(
+                (s_r == 0) & (pk.bkind[pk.rbase[s_e]] == _B_LEAD))
+            if len(sel):
+                # leading gap: a class run of length >= lo right before
+                # the start (Castle-prefix analogue)
+                s, b, e = s_pos[sel], s_b[sel], s_e[sel]
+                k = pk.rbase[e]
+                bs = block_starts[b]
+                prevb = _prev_bad(pk, corpus, s, pk.bgap[k], lastbad_cache)
+                floor = carried.floors(e * nb + b, bs)
+                run_start = np.where(prevb >= bs, prevb + 1, floor)
+                conn[s_pair[sel[(s - run_start) >= pk.glo[k]]]] = True
+        else:
+            ekind = np.zeros(ne, np.int64)
+            live = R > r
+            ekind[live] = pk.bkind[pk.rbase[live] + r]
+            starts = (s_e, s_b, s_pos, s_r, s_pair)
+            _connect_class(pk, corpus, r, ekind, ends, carried, starts,
+                           conn, block_starts, lastbad_cache)
+            _connect_infix(lit, r, ekind, ends, carried, starts, conn,
+                           corpus, block_starts, block_ends, hist_req,
+                           chain_out)
+        ends = ends_of(at_r[conn[at_r]])
+        final = R[ends[0]] == r + 1
+        fin = tuple(a[final] for a in ends)
+        ends = tuple(a[~final] for a in ends)
+        trail = pk.tgap[fin[0]] >= 0
         if streaming:
-            for b, arr in ends.items():
-                chain_out[(b, eidx, R - 1)] = arr
-        fb = _firstbad(corpus, ch.gap_bits[gi], lastbad_cache)
-        N = corpus.shape[0]
-        ends, carried_pre = _merge_carried(
-            ends, chain_ctx, eidx, R - 1, block_starts
-        )
-        for b in set(ends) | set(carried_pre):
-            bs = int(block_starts[b])
-            be = int(block_ends[b])
-            run_end = int(fb[bs]) if bs < N else bs  # run from block start
-            e0s: List[Tuple[int, int]] = []  # (e0_local, run_end_local)
-            arr = ends.get(b)
-            if arr is not None:
-                for e0 in arr.tolist():
-                    e0 = int(e0)
-                    e0_run = int(fb[e0]) if e0 < N else e0
-                    e0s.append((e0, e0_run))
-            C = carried_pre.get(b)
-            if C is not None:
-                c_ends, c_run, base_abs = C
-                # pre-extent pending ends: run alive through the carried
-                # region (pruned by c_run) and into this extent's prefix
-                for e0_abs in np.asarray(c_ends).tolist():
-                    if int(e0_abs) < int(c_run):
-                        continue
-                    e0s.append((bs + (int(e0_abs) - base_abs), run_end))
-            spans_e: List[Tuple[int, int]] = []
-            for (e0, e0_run) in e0s:
-                hi = min(e0_run, be)
-                if ghi is not None:
-                    hi = min(hi, e0 + ghi)
-                lo = max(e0 + glo, bs)
-                if hi >= lo:
-                    spans_e.append((lo, hi))
-            # coalesce overlapping/adjacent end ranges: dense role ends
-            # inside one gap run would otherwise emit O(ends) overlapping
-            # ranges that the delivery stage expands individually
-            spans_e.sort()
-            merged_s: List[List[int]] = []
-            for (lo, hi) in spans_e:
-                if merged_s and lo <= merged_s[-1][1] + 1:
-                    if hi > merged_s[-1][1]:
-                        merged_s[-1][1] = hi
-                else:
-                    merged_s.append([lo, hi])
-            for (lo, hi) in merged_s:
-                if ranges_out is not None:
-                    ranges_out.append((b, eidx, lo - bs, hi - bs))
-                else:
-                    for e in range(lo, hi + 1):
-                        recs.add((b, eidx, e - bs, 0))
+            # boundary r: mid-gap ends, or pending trailing-gap ends
+            write_out(ends, r)
+            write_out(tuple(a[trail] for a in fin), r)
+        # final-role ends -> match reports
+        fe, fb, fp = (a[~trail] for a in fin)
+        recs.update(zip(fb.tolist(), fe.tolist(),
+                        (fp - block_starts[fb]).tolist(),
+                        itertools.repeat(0)))
+        _trail(pk, corpus, r, tuple(a[trail] for a in fin), carried,
+               act & (R == r + 1) & (pk.tgap >= 0), block_starts,
+               block_ends, lastbad_cache, ranges_out, recs)
     return recs
+
+
+def _connect_class(pk, corpus, r, ekind, ends, carried, starts, conn,
+                   block_starts, lastbad_cache):
+    """Role-r starts (`starts`: expression, block, offset, role, match)
+    behind a single-class gap connect to a role r-1 end (or one carried
+    from earlier writes) through an all-in-class run of the gap's
+    length: marks their matches in `conn`. `ekind[e]` is the kind of
+    chain e's gap before role r."""
+    s_e, s_b, s_pos, s_r, s_pair = starts
+    sel = np.flatnonzero((s_r == r) & (ekind[s_e] == _B_CLASS))
+    bnd = np.where(ekind == _B_CLASS, r - 1, -1)
+    new, older = carried.split(bnd, block_starts)
+    if not len(sel):
+        return
+    cls = ekind[ends[0]] == _B_CLASS
+    E = _sorted_unique(*(np.concatenate([a[cls], n])
+                         for a, n in zip(ends, new)))
+    s, b, e = s_pos[sel], s_b[sel], s_e[sel]
+    k = pk.rbase[e] + r
+    bs = block_starts[b]
+    glo, ghi = pk.glo[k], pk.ghi[k]
+    prevb = _prev_bad(pk, corpus, s, pk.bgap[k], lastbad_cache)
+    p_lo = np.maximum(bs, prevb + 1)
+    p_lo = np.where(ghi >= 0, np.maximum(p_lo, s - ghi), p_lo)
+    p_hi = s - glo
+    ok = p_hi >= p_lo
+    gE, gS, gC = _group_ids(len(block_starts), (E[0], E[1]), (e, b),
+                            (older[0], older[1]))
+    span = np.int64(corpus.shape[0] + 2)
+    hit = ok & _any_in(gE, E[2], gS, np.where(ok, p_lo, 0),
+                       np.where(ok, p_hi, 0), span)
+    if len(older[0]):
+        # pre-extent evidence connects iff no bad byte precedes the
+        # start inside the extent (pruning kept it clean up to the
+        # extent start); offsets relative to the extent start
+        c_rel = np.maximum(older[2] - older[4], -_OLD_SPAN) + _OLD_SPAN
+        i = np.minimum(np.searchsorted(gC, gS), len(gC) - 1)
+        has = gC[i] == gS
+        run_rel = older[3][i] - older[4][i]
+        rel = s - bs
+        pl = np.where(ghi >= 0, np.maximum(run_rel, rel - ghi), run_rel)
+        pl = np.maximum(pl, -_OLD_SPAN)
+        ph = np.minimum(rel - glo, -1)
+        okc = has & ((s == bs) | (prevb < bs)) & (ph >= pl)
+        hit |= okc & _any_in(gC, c_rel, gS,
+                             np.where(okc, pl + _OLD_SPAN, 0),
+                             np.where(okc, ph + _OLD_SPAN, 0),
+                             _OLD_SPAN + 1)
+    conn[s_pair[sel[hit]]] = True
+
+
+def _connect_infix(lit, r, ekind, ends, carried, starts, conn, corpus,
+                   block_starts, block_ends, hist_req, chain_out):
+    """Role-r starts behind a general-gap infix connect to role r-1 ends
+    through the infix NFA (forward injection scan, per expression and
+    block). Streaming carries the infix engine's state across writes:
+    the NFA mask captured at the next extent's start plus recent end
+    positions whose factor context will be trimmed out of the rescanable
+    history (reference analogue: LeftEngInfo infix stream state,
+    rose_graph.h:140)."""
+    s_e, s_b, s_pos, s_r, s_pair = starts
+    streaming = chain_out is not None
+    bnd = r - 1
+    sel = np.flatnonzero((s_r == r) & (ekind[s_e] == _B_INFIX))
+    inf = ekind[ends[0]] == _B_INFIX
+    # per (expression, block): the role r-1 ends, and the role-r starts
+    # with their matches (a handful each: Python lists beat numpy here)
+    E_at: Dict[Tuple[int, int], List[int]] = {}
+    for e, b, p in zip(*(a[inf].tolist() for a in ends)):
+        E_at.setdefault((e, b), []).append(p)
+    S_at: Dict[Tuple[int, int], List[Tuple[int, int]]] = {}
+    for e, b, p, i in zip(s_e[sel].tolist(), s_b[sel].tolist(),
+                          s_pos[sel].tolist(), s_pair[sel].tolist()):
+        S_at.setdefault((e, b), []).append((p, i))
+    groups = set(E_at) | set(S_at)
+    for (e, bnd_c), recs_b in carried.infix.items():
+        if bnd_c == bnd and ekind[e] == _B_INFIX:
+            groups |= {(e, b) for b in recs_b}
+    hits: List[int] = []
+    for (e, b) in sorted(groups):
+        spec = lit.chains[e].infix[bnd]
+        bs = int(block_starts[b])
+        be = int(block_ends[b])
+        E_set = set(E_at.get((e, b), ()))
+        mask0 = 0
+        rec = carried.infix.get((e, bnd), {}).get(b)
+        if rec is not None:
+            arr, _cap_abs, base_abs = rec
+            # arr[0] is the carried NFA mask, an arbitrary-width Python
+            # int (chain_ctx_record keeps infix records as lists)
+            lst = [int(x) for x in arr]
+            if lst:
+                mask0 = lst[0]
+                E_set |= {bs + (x - base_abs) for x in lst[1:]}
+        starts = S_at.get((e, b), [])
+        if not E_set and not mask0 and not streaming:
+            continue
+        capture_at = max(bs, be - hist_req) if streaming else None
+        ok, cap_mask = _infix_connect(
+            spec, corpus, sorted(E_set), sorted({p for p, _i in starts}),
+            be, init_mask=mask0, init_pos=bs, capture_at=capture_at,
+        )
+        if streaming:
+            keeps = sorted(x for x in E_set if x >= capture_at)[-4096:]
+            chain_out[(b, e, bnd)] = (
+                "imask", int(cap_mask), keeps, int(capture_at))
+        if ok:
+            hits.extend(i for p, i in starts if p in ok)
+    conn[hits] = True

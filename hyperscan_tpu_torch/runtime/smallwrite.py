@@ -51,36 +51,46 @@ def teddy_filter_host(
 
 def dfa_scan_host(
     engine, data: np.ndarray, lengths: np.ndarray,
-    init_states: Optional[np.ndarray] = None,
+    init_states: Optional[np.ndarray] = None, flat: bool = False,
 ) -> Tuple[List[List[Tuple[int, int]]], np.ndarray]:
     """Lockstep numpy DFA over a [B, L] batch.
 
-    Returns (per-row [(pos_index, accept_set_id)...], final_states[B]).
+    Returns (per-row [(pos_index, accept_set_id)...], final_states[B]),
+    or with `flat` the accepts as three arrays (row, pos_index,
+    accept_set_id), ordered by row, then position.
     Mirrors ops.dfa.dfa_scan_batch but on host (reference: the smallwrite
     McClellan direct exec, src/runtime.c:303-311)."""
     B, L = data.shape
     if init_states is None:
         init_states = np.full(B, engine.start_state, dtype=np.int32)
-    from ..native import dfa_scan_batch_native
+    from ..native import _split_hits, dfa_scan_batch_native
 
-    native = dfa_scan_batch_native(engine, data, lengths, init_states)
+    native = dfa_scan_batch_native(engine, data, lengths, init_states,
+                                   flat=flat)
     if native is not None:
         return native
     trans = engine.trans
     b2c = engine.byte_to_class.astype(np.int64)
     accept_id = engine.accept_id
     states = init_states.astype(np.int64).copy()
-    acc: List[List[Tuple[int, int]]] = [[] for _ in range(B)]
+    rows: List[np.ndarray] = [np.zeros(0, np.int64)]
+    poss: List[np.ndarray] = [np.zeros(0, np.int64)]
+    aids: List[np.ndarray] = [np.zeros(0, np.int64)]
     if L:
         cls = b2c[data]
         for t in range(L):
             active = t < lengths
             states = np.where(active, trans[states, cls[:, t]], states)
-            aids = np.where(active, accept_id[states], 0)
-            for bi in np.flatnonzero(aids):
-                acc[bi].append((t, int(aids[bi])))
-    hits = []
-    for bi in range(B):
-        a = np.asarray(acc[bi], dtype=np.int64).reshape(-1, 2)
-        hits.append((a[:, 0], a[:, 1]))
-    return hits, states
+            aid = np.where(active, accept_id[states], 0)
+            nz = np.flatnonzero(aid)
+            rows.append(nz)
+            poss.append(np.full(len(nz), t, np.int64))
+            aids.append(aid[nz].astype(np.int64))
+    row = np.concatenate(rows)
+    order = np.argsort(row, kind="stable")
+    row = row[order]
+    pos = np.concatenate(poss)[order]
+    val = np.concatenate(aids)[order]
+    if flat:
+        return (row, pos, val), states
+    return _split_hits(len(row), row, pos, val, B), states

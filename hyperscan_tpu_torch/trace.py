@@ -37,6 +37,10 @@ Counters, raised once per stage and never per match, flow or block:
   (`ops.dfa_kernel._run_chunks`, `ops.nfa_kernel.nfa_scan_corpus`);
 - `COUNTS["chain_exprs"]`: the chain expressions `resolve_chains` works
   through;
+- `COUNTS["chain_passes"]`: the packed role scans `resolve_chains` runs,
+  each over every chain expression at once (a forward pass over the
+  windows, a reverse pass from the role matches): two a call at most,
+  whatever `chain_exprs` reads;
 - `ops._build.LAUNCHES`: launches per CUDA kernel;
 - `ops.teddy_families.FamilyState.dispatches`: per literal database,
   dispatches by family.
@@ -53,7 +57,8 @@ from typing import Dict
 import torch
 from torch.autograd import profiler as _profiler
 
-COUNTS: Dict[str, int] = {"redispatches": 0, "chain_exprs": 0}
+COUNTS: Dict[str, int] = {"redispatches": 0, "chain_exprs": 0,
+                          "chain_passes": 0}
 
 _lock = threading.Lock()
 _local = threading.local()  # .stack: the thread's open spans

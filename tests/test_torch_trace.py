@@ -2,7 +2,7 @@
 CPU: the spans a profiled block call and StreamSet round export and how
 they nest, a span count that does not grow with the batch, the no-op
 while no profiler records, self time over nested spans on two threads,
-and the `redispatches` and `chain_exprs` counters."""
+and the `redispatches`, `chain_exprs` and `chain_passes` counters."""
 
 import json
 import threading
@@ -211,3 +211,33 @@ def test_chain_exprs_counts_the_block_chains():
         before = T.COUNTS["chain_exprs"]
         ht.scan_batch(db, [block], device=CPU)
         assert T.COUNTS["chain_exprs"] - before == n, block
+
+
+def test_chain_passes_do_not_grow_with_the_chains():
+    """chain_passes rises by as much for 1, 8 and 50 chain matches of
+    distinct rules (a forward pass over the windows, a reverse pass from
+    the role matches), and not at all where no chain window and no
+    carried state exist."""
+    import bench
+
+    pats, ids = bench._patterns(300)
+    gates = [(p, i) for p, i in zip(pats, ids) if i % 6 == 5]
+    assert len(gates) == 50
+    db = ht.compile_multi([p for p, _i in gates],
+                          ids=[i for _p, i in gates])
+    db.host_scan_limit = 0
+    assert len(db.lit.chains) == 50
+
+    def plant(i):
+        w = bench.WORDS[i % len(bench.WORDS)]
+        return b"gate%dxabcd%s%dend" % (i, w.encode(), i)
+
+    seen = []
+    for n in (1, 8, 50, 0):
+        block = b" ".join([b"noise"] + [plant(i) for _p, i in gates[:n]])
+        before = dict(T.COUNTS)
+        got = ht.scan_batch(db, [block], device=CPU)[0]
+        assert len(got) == n, n
+        assert T.COUNTS["chain_exprs"] - before["chain_exprs"] == n
+        seen.append(T.COUNTS["chain_passes"] - before["chain_passes"])
+    assert seen == [2, 2, 2, 0]
