@@ -26,9 +26,11 @@ launches work only on its own entries (`Mesh.local`), and `psum` /
 `all_gather` then reduce and gather over the group, so every process
 returns the same global result. The input contracts are the reference's:
 
-- the literal path (`scan_batch(mesh=)`, `scan_streams(mesh=)`,
-  `sharded_literal_confirm`) and `sharded_teddy_count` take the same
-  global input on every process;
+- the literal path (`scan_batch(mesh=)` through `sharded_literal_scan`,
+  `scan_streams(mesh=)` through `sharded_literal_confirm`) and
+  `sharded_teddy_count` take the same global input on every process. A
+  block scan runs the host stages of its own shards and exchanges their
+  finished matches; a stream scan exchanges the shards' confirmed pairs;
 - `sharded_scan_counts` and `sharded_scan_matches` take each process's
   own rows, padded to a multiple of its shard count
   (`global_shard_arrays`).
@@ -46,6 +48,7 @@ import torch
 
 from ..ops.dfa import dfa_scan_batch
 from ..ops.match import count_matches, extract_matches
+from ..trace import count, span
 
 SHARD_AXIS = "shards"
 LOOKBACK = 8  # bytes before a segment that its first positions read
@@ -490,70 +493,165 @@ def partition_blocks(blocks, n_shards: int):
     return groups
 
 
+def _confirm_local(lit, blocks, mesh: Mesh, capacity: int, flat=None):
+    """Filter + hash confirm of this process's shards of a block batch.
+
+    Blocks partition contiguously across the mesh's entries
+    (`partition_blocks`, which reads only their lengths). Each of this
+    process's shards is uploaded to its device and scanned there by the
+    literal path's own dispatcher (`ops.teddy_families`), so a shard runs
+    the family that the unsharded scan would run and learns the same
+    capacities. Every shard's meta and pairs are read back in one copy; a
+    shard whose outputs overflowed is dispatched again on its device.
+
+    `flat` is `ops.teddy.flatten_blocks(blocks)`, when the caller has it,
+    and every shard's bytes are sliced from it; without it only this
+    process's shards' blocks are flattened, shard by shard.
+
+    Returns per shard of the mesh, in mesh order, (block_indices,
+    corpus_array, starts, ends, fid_array, flat_pos_array); a shard of
+    another process has no pairs, and where `flat` is None neither it nor
+    an empty shard has bytes (None)."""
+    from ..ops.teddy import corpus_tensor, flatten_blocks
+    from ..ops.teddy_families import (confirm_fetch_many, confirm_finish,
+                                      confirm_start)
+
+    devs = list(mesh.devices.flat)
+    mine = set(mesh.local)
+    corpus, starts, lens = flat if flat is not None else (None,) * 3
+    shards = []  # (g, corpus_d, starts_d, ends_d, handle or None)
+    for d, g in enumerate(partition_blocks(blocks, len(devs))):
+        if flat is not None:
+            gi = np.asarray(g, dtype=np.int64)
+            lo = int(starts[g[0]]) if len(g) else 0
+            hi = int(starts[g[-1]] + lens[g[-1]]) if len(g) else 0
+            corpus_d, starts_d, lens_d = corpus[lo:hi], starts[gi] - lo, \
+                lens[gi]
+        elif d in mine and g:
+            corpus_d, starts_d, lens_d = flatten_blocks(
+                [blocks[i] for i in g])
+        else:
+            shards.append((g, None, None, None, None))
+            continue
+        h = None
+        if d in mine and len(corpus_d):
+            with _on(devs[d]):
+                h = confirm_start(corpus_tensor(corpus_d, devs[d]), lit,
+                                  len(corpus_d), capacity)
+        shards.append((g, corpus_d, starts_d, starts_d + lens_d, h))
+    got = iter(confirm_fetch_many([sh[4] for sh in shards
+                                   if sh[4] is not None]))
+    out = []
+    for (g, corpus_d, starts_d, ends_d, h) in shards:
+        fid = pos = np.zeros(0, np.int64)
+        if h is not None:
+            with _on(h.corpus.device):
+                fid, pos = confirm_finish(h, next(got))
+        out.append((g, corpus_d, starts_d, ends_d, fid, pos))
+    return out
+
+
 def sharded_literal_confirm(lit, blocks, mesh: Mesh, capacity: int,
                             flat=None):
-    """Filter + hash confirm of a block batch sharded across the mesh.
-
-    Blocks partition contiguously across the shards (`partition_blocks`);
-    each shard's bytes are uploaded to its device and scanned there by
-    the literal path's own dispatcher (`ops.teddy_families`), so a shard
-    runs the family that the unsharded scan would run and learns the same
-    capacities. Every shard's meta and pairs are gathered on the first
-    live shard's device and read in one copy; a shard whose outputs
-    overflowed is dispatched again on its device. `flat` is
-    `ops.teddy.flatten_blocks(blocks)`, when the caller has it already.
+    """Filter + hash confirm of a block batch sharded across the mesh
+    (`_confirm_local`), to every shard's hash-matched pairs.
 
     On a mesh of several processes every process passes the same global
-    block list and scans only its own shards; the shards' pairs are then
-    gathered over the group, so every process returns every shard's
-    (reference: hyperscan_tpu/parallel/sharded.py:426-444).
+    block list, scans only its own shards, and the shards' pairs are then
+    gathered over the group (`_exchange`), so every process returns every
+    shard's (reference: hyperscan_tpu/parallel/sharded.py:426-444) and
+    runs the host stages over all of them. The stream path takes this
+    form: its chain state crosses shards. A block scan takes
+    `sharded_literal_scan`, which exchanges finished matches instead.
 
     Returns per shard (block_indices, fid_array, flat_pos_array,
     corpus_array, starts, ends): hash-matched pairs, to be exact-verified
     and window-validated by the host stages per shard group.
     """
-    from ..ops.teddy import corpus_tensor, flatten_blocks
-    from ..ops.teddy_families import (confirm_fetch_many, confirm_finish,
-                                      confirm_start)
+    from ..ops.teddy import flatten_blocks
 
     mesh = _as_shard_mesh(mesh)
-    devs = list(mesh.devices.flat)
-    mine = set(mesh.local)
-    corpus, starts, lens = flat if flat is not None else \
-        flatten_blocks(blocks)
-    shards = []  # (g, corpus_d, starts_d, ends_d, handle or None)
-    for d, g in enumerate(partition_blocks(blocks, len(devs))):
-        gi = np.asarray(g, dtype=np.int64)
-        lo = int(starts[g[0]]) if len(g) else 0
-        hi = int(starts[g[-1]] + lens[g[-1]]) if len(g) else 0
-        corpus_d = corpus[lo:hi]
-        starts_d = starts[gi] - lo
-        h = None
-        if hi > lo and d in mine:
-            with _on(devs[d]):
-                h = confirm_start(corpus_tensor(corpus_d, devs[d]), lit,
-                                  hi - lo, capacity)
-        shards.append((g, corpus_d, starts_d, starts_d + lens[gi], h))
-    live = [sh[4] for sh in shards if sh[4] is not None]
-    got = iter(confirm_fetch_many(live))
-    pairs = []
-    for (_g, _c, _s, _e, h) in shards:
-        fid = pos = np.zeros(0, np.int64)
-        if h is not None:
-            with _on(h.corpus.device):
-                fid, pos = confirm_finish(h, next(got))
-        pairs.append((fid, pos))
+    if flat is None:
+        flat = flatten_blocks(blocks)
+    shards = _confirm_local(lit, blocks, mesh, capacity, flat)
+    pairs = [(fid, pos) for (*_rest, fid, pos) in shards]
     if mesh.distributed:
-        pairs = _gather_pairs([pairs[d] for d in mesh.local], mesh)
+        pairs = _exchange([pairs[d] for d in mesh.local], mesh)
     return [(g, fid, pos, corpus_d, starts_d, ends_d)
-            for (g, corpus_d, starts_d, ends_d, _h), (fid, pos)
+            for (g, corpus_d, starts_d, ends_d, _f, _p), (fid, pos)
             in zip(shards, pairs)]
 
 
+def sharded_literal_scan(db, blocks, mesh: Mesh, capacity: int, flat=None):
+    """The literal path of a block batch sharded across the mesh, to
+    finished match records.
+
+    Each process takes its own shards (`Mesh.local`) through the whole
+    literal path: `_confirm_local` flattens (or, given `flat`, slices)
+    and uploads only their blocks and confirms them on their devices,
+    and the host stages `verify_pairs` and `finish_confirmed` (windows,
+    chains) run on each of them with shard-local block indices. No
+    process runs a host stage over another's shard. On a mesh of several
+    processes the shards' finished records and ranges then cross the
+    group (`_exchange`, as two int64 columns a shard) and nothing else
+    does, so every process returns every shard's.
+
+    Returns (records, ranges): int64 arrays [n, 4] of (block, expr_index,
+    to, from) and [m, 4] of (block, expr_index, lo, hi), a range standing
+    for every `to` in [lo, hi] with from 0; blocks are indices into
+    `blocks`, and the shards' rows follow one another in mesh order."""
+    from ..runtime.lit_runtime import finish_confirmed, verify_pairs
+
+    mesh = _as_shard_mesh(mesh)
+    shards = _confirm_local(db.lit, blocks, mesh, capacity, flat)
+    local = []
+    for d in mesh.local:
+        g, corpus_d, starts_d, ends_d, fid, pos = shards[d]
+        recs, rng = (), []
+        if len(g):
+            fid, pos = verify_pairs(db.lit, corpus_d, starts_d, fid, pos)
+            recs = finish_confirmed(db, corpus_d, starts_d, ends_d, fid,
+                                    pos, ranges_out=rng)
+        local.append(_encode_records(g, recs, rng))
+    if mesh.distributed:
+        local = _exchange(local, mesh)
+    rows = np.concatenate([np.concatenate(
+        [np.asarray(a, np.int64).reshape(-1, 2),
+         np.asarray(b, np.int64).reshape(-1, 2)], 1) for a, b in local])
+    is_range = (rows[:, 0] & 1).astype(bool)
+    rows[:, 0] >>= 1
+    return rows[~is_range], rows[is_range]
+
+
+def _encode_records(g, recs, rng) -> Tuple[np.ndarray, np.ndarray]:
+    """One shard's records (block_local, expr_index, to, from) and ranges
+    (block_local, expr_index, lo, hi) as the exchange's pair of
+    equal-length int64 arrays: a row (block << 1 | is_range, expr_index,
+    to or lo, from or hi) a match, its first two values in the first
+    array and its last two in the second, global block indices."""
+    rows = np.asarray(list(recs) + list(rng), np.int64).reshape(-1, 4)
+    rows[:, 0] = np.asarray(g, np.int64)[rows[:, 0]] << 1
+    rows[len(recs):, 0] |= 1
+    return rows[:, :2].reshape(-1), rows[:, 2:].reshape(-1)
+
+
+def _exchange(local, mesh: Mesh):
+    """`_gather_pairs` of this process's shards' `local` pairs, as one
+    exchange over the group: inside the span `hs.exchange`, counting the
+    exchange (`exchanges`) and the bytes of the pairs this process hands
+    to it (`exchange_bytes`, 16 a pair as int64)."""
+    with span("hs.exchange"):
+        count("exchanges")
+        count("exchange_bytes", 16 * sum(len(f) for f, _p in local))
+        return _gather_pairs(local, mesh)
+
+
 def _gather_pairs(local, mesh: Mesh):
-    """The (fid, pos) arrays of every shard of the mesh, in mesh order,
-    from this process's shards' `local` (in `mesh.local` order): each
-    process's lengths, then its pairs, gathered over the group."""
+    """A pair of equal-length int64 arrays for every shard of the mesh,
+    in mesh order, from this process's shards' `local` pairs (in
+    `mesh.local` order): each process's lengths, then its pairs, gathered
+    over the group. The pairs are a shard's (fid, pos) or its encoded
+    matches (`_encode_records`)."""
     lens = torch.tensor([len(f) for f, _p in local], dtype=torch.int64)
     vals = torch.from_numpy(np.stack([
         np.concatenate([np.asarray(f, np.int64) for f, _p in local]),

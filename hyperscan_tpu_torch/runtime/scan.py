@@ -265,10 +265,19 @@ def scan_blocks_raw(
 
     With `mesh` (parallel.sharded.Mesh), a literal database over more
     than 64 KiB of blocks shards its literal pipeline across the mesh
-    (`sharded_literal_confirm`), and the host stages run per shard group;
+    (`sharded_literal_scan`): each shard's blocks are uploaded to its
+    device and confirmed there, and the host stages (`verify_pairs`,
+    `finish_confirmed`) run per shard, with shard-local block indices;
     everything else runs on the mesh's first device (`mesh_device`), and
     the engines then scan without literal prefilter gating (reference:
-    hyperscan_tpu/runtime/scan.py:246-266)."""
+    hyperscan_tpu/runtime/scan.py:246-266). On a mesh of several
+    processes every process is handed the same global batch and returns
+    every block's records, but computes only its own shards' part of the
+    literal path: it flattens, uploads, confirms and runs the host stages
+    of its own shards' blocks alone (the whole batch is flattened only
+    for the engines, where the database has any), and only the shards'
+    finished records and ranges cross the group. Report finalization
+    (`scan_batch`) stays on every process."""
     if mesh is not None:
         device = mesh_device(mesh, device)
     elif device is None:
@@ -278,11 +287,14 @@ def scan_blocks_raw(
     from ..ops.teddy import corpus_tensor, flatten_blocks
     from .smallwrite import HOST_SCAN_LIMIT
 
-    corpus, starts, lens = flatten_blocks(blocks)
-    sharded = (db.lit is not None and mesh is not None
-               and corpus.shape[0] > 1 << 16)
-    on_device = corpus.shape[0] > getattr(db, "host_scan_limit",
-                                          HOST_SCAN_LIMIT)
+    n = sum(map(len, blocks))
+    sharded = db.lit is not None and mesh is not None and n > 1 << 16
+    on_device = n > getattr(db, "host_scan_limit", HOST_SCAN_LIMIT)
+    # a process of a mesh of several processes flattens only its own
+    # shards' blocks (`sharded_literal_scan`), unless engines scan them all
+    flat = corpus = starts = lens = None
+    if not (sharded and mesh.distributed and not db.engines):
+        flat = corpus, starts, lens = flatten_blocks(blocks)
     corpus_t = (corpus_tensor(corpus, device)
                 if on_device and (db.engines or not sharded) else None)
 
@@ -290,22 +302,14 @@ def scan_blocks_raw(
     # confirm + window validation (reference: Rose floating literal
     # matcher path, src/rose/block.c roseBlockFloating)
     if sharded:
-        from ..parallel.sharded import sharded_literal_confirm
-        from .lit_runtime import finish_confirmed, verify_pairs
+        from ..parallel.sharded import sharded_literal_scan
 
-        for (g, fid_a, p_a, corpus_d, starts_d, ends_d) in \
-                sharded_literal_confirm(db.lit, blocks, mesh, capacity,
-                                        flat=(corpus, starts, lens)):
-            if not len(g):
-                continue
-            fid_a, p_a = verify_pairs(db.lit, corpus_d, starts_d, fid_a, p_a)
-            rng: List[Tuple[int, int, int, int]] = []
-            recs = finish_confirmed(db, corpus_d, starts_d, ends_d, fid_a,
-                                    p_a, ranges_out=rng)
-            for (bi_local, eidx, to, frm) in recs:
-                per_block[g[bi_local]].add(eidx, to, frm)
-            for (bi_local, eidx, lo, hi) in rng:
-                per_block[g[bi_local]].add_range(eidx, lo, hi)
+        recs, rng = sharded_literal_scan(db, blocks, mesh, capacity,
+                                         flat=flat)
+        for (bi, eidx, to, frm) in recs.tolist():
+            per_block[bi].add(eidx, to, frm)
+        for (bi, eidx, lo, hi) in rng.tolist():
+            per_block[bi].add_range(eidx, lo, hi)
     # engine prefilter hits: None when the literal half did not collect
     # them (sharded), and the engines then scan every block
     prefilter_hits: Optional[dict] = None

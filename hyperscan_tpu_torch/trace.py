@@ -23,6 +23,7 @@ switch: spans are on exactly while a trace is recorded (for example
 | `hs.chains` | `resolve_chains` |
 | `hs.write_start` | `runtime.streamset.streamset_write_start` (a root) |
 | `hs.write_finish` | `streamset_write_finish` (a root) |
+| `hs.exchange` | `parallel.sharded._exchange`: on a mesh of several processes, the group's gather of the shards' finished matches (a block scan) or confirmed pairs (a stream scan) |
 
 While a profiler records, each span's self time (its duration less the
 spans nested in it on its thread) is also summed by name in `PROFILED`,
@@ -41,6 +42,11 @@ Counters, raised once per stage and never per match, flow or block:
   each over every chain expression at once (a forward pass over the
   windows, a reverse pass from the role matches): two a call at most,
   whatever `chain_exprs` reads;
+- `COUNTS["exchanges"]`: the exchanges over a mesh's process group
+  (`parallel.sharded._exchange`), one a sharded call on several
+  processes;
+- `COUNTS["exchange_bytes"]`: the bytes of the pairs this process hands
+  to those exchanges (int64, 16 a pair), raised once an exchange;
 - `ops._build.LAUNCHES`: launches per CUDA kernel;
 - `ops.teddy_families.FamilyState.dispatches`: per literal database,
   dispatches by family.
@@ -58,7 +64,8 @@ import torch
 from torch.autograd import profiler as _profiler
 
 COUNTS: Dict[str, int] = {"redispatches": 0, "chain_exprs": 0,
-                          "chain_passes": 0}
+                          "chain_passes": 0, "exchanges": 0,
+                          "exchange_bytes": 0}
 
 _lock = threading.Lock()
 _local = threading.local()  # .stack: the thread's open spans

@@ -1,24 +1,27 @@
 """The port's multi-process mesh against one process: two
 `torch.distributed` processes of four CPU shards each, on gloo over
 127.0.0.1 (tests/torch_multihost_worker.py), the counterpart of
-tests/test_multihost.py's two `jax.distributed` processes.
+tests/test_multihost.py's two `jax.distributed` processes, and four
+processes of one shard each, as the four-card benchmark cell runs.
 
 Each process's results must equal the single-process ones, computed here
 through the JAX package and the port:
 - the reference test's 16 x 700 B batch, which stays below the 64 KiB at
   which scan_batch shards the literal path, so it checks the group and
   each process's unsharded scan;
-- 96 x 1,400 B, above it, where `sharded_literal_confirm` scans each
-  process's shards and gathers every shard's pairs over the group;
+- 96 x 1,400 B, above it, where `sharded_literal_scan` takes each
+  process's shards through the literal path and its host stages and
+  exchanges their finished matches over the group;
+- on four processes, a bulk1m-shaped batch of the bench formula's rules:
+  each process's host stages see its own shard's bytes and no other's,
+  and without the exchange the other shards' matches are lost;
 - sharded_teddy_count, sharded_scan_counts and sharded_scan_matches, the
   last two over each process's own rows.
 """
 
-import json
 import os
-import socket
-import subprocess
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -28,50 +31,52 @@ import hyperscan_tpu_torch as ht
 import torch_ref_native  # noqa: F401 (the reference's native build, locked)
 from hyperscan_tpu import parallel as RP
 from hyperscan_tpu_torch import parallel as PP
+from hyperscan_tpu_torch.parallel import sharded as PS
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_multihost_worker as W  # noqa: E402
-
-WORKER = os.path.join(os.path.dirname(__file__), "torch_multihost_worker.py")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     """Both workers' results, after each exited 0."""
-    out = str(tmp_path_factory.mktemp("torch_mh") / "mh")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
-                        "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, WORKER, str(pid), port, out],
-                              env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE)
-             for pid in range(W.PROCESSES)]
-    try:
-        outs = [p.communicate(timeout=240) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (so, se) in zip(procs, outs):
-        assert p.returncode == 0, (so.decode()[-2000:], se.decode()[-2000:])
-    res = []
-    for pid in range(W.PROCESSES):
-        with open(f"{out}.{pid}") as f:
-            res.append(json.load(f))
+    res = W.spawn("mesh2", str(tmp_path_factory.mktemp("torch_mh") / "mh"))
     for r in res:
         assert r["process_count"] == 2
         assert r["global_shards"] == 8
         assert r["local_shards"] == 4
         assert r["backend"] == "gloo"
     return res
+
+
+@pytest.fixture(scope="module")
+def bulk(tmp_path_factory):
+    """The four workers of mode "bulk4" (one shard each, as the four-card
+    benchmark cell), after each exited 0."""
+    res = W.spawn("bulk4", str(tmp_path_factory.mktemp("torch_mh4") / "mh"))
+    for r in res:
+        assert (r["process_count"], r["global_shards"], r["local_shards"],
+                r["backend"]) == (4, 4, 1, "gloo")
+    return res
+
+
+@pytest.fixture(scope="module")
+def bulk_ref():
+    """The JAX package's database of the bulk rules."""
+    pats, ids = W.bulk_patterns()
+    return hs.compile_multi(pats, ids=ids)
+
+
+@pytest.fixture(scope="module")
+def bulk_want(bulk_ref):
+    """The bulk batch's lists from the JAX package's single-process
+    scan_batch, held equal to the port's unsharded one."""
+    blocks = W.bulk_blocks()
+    want = hs.scan_batch(bulk_ref, blocks)
+    pats, ids = W.bulk_patterns()
+    assert ht.scan_batch(ht.compile_multi(pats, ids=ids), blocks,
+                         device="cpu") == want
+    return want
 
 
 def _lists(ms):
@@ -101,13 +106,13 @@ def test_sharded_batch_equals_single_process(results):
     assert ht.scan_batch(W.build_db(ht), blocks, device="cpu") == want
     for r in results:
         assert _lists(r["big"]) == want, f"process {r['process_id']}"
-        # one sharded confirm, over both processes' shards; this process
-        # dispatched only its own four, and got the other's pairs
+        # one sharded scan, over both processes' shards; this process
+        # dispatched only its own four, and got the other's matches
         (seen,) = r["big_confirm"]
         assert seen["process_count"] == 2
         assert seen["ranks"] == [0] * 4 + [1] * 4
         assert r["dispatches"] == 4
-        other = [n for n, rank in zip(seen["pairs"], seen["ranks"])
+        other = [n for n, rank in zip(seen["matches"], seen["ranks"])
                  if rank != r["process_id"]]
         assert sum(other) > 0
     assert results[0]["big_confirm"] == results[1]["big_confirm"]
@@ -123,7 +128,8 @@ def test_process_without_blocks_joins_the_gather(results):
     for r in results:
         assert _lists(r["lopsided"]) == want, f"process {r['process_id']}"
         (seen,) = r["lopsided_confirm"]
-        assert seen["pairs"][2:] == [0] * 6 and min(seen["pairs"][:2]) > 0
+        assert seen["matches"][2:] == [0] * 6 \
+            and min(seen["matches"][:2]) > 0
 
 
 def test_engine_functions_equal_single_process(results):
@@ -149,3 +155,59 @@ def test_engine_functions_equal_single_process(results):
         assert r["dfa_count"] == dfa_count
         for got, want in zip(r["dfa_matches"], dfa_matches):
             assert np.array_equal(np.asarray(got), want.numpy())
+
+
+def _shard_stages(blocks, group):
+    """What a process's host stages see of one shard: its blocks' bytes
+    flattened, uploaded, verified and window-validated, as the worker's
+    spy records them."""
+    data = b"".join(blocks[i] for i in group)
+    key = (len(group), len(data), zlib.crc32(data))
+    return [["flatten", *key], ["upload", 0, *key[1:]], ["verify", *key],
+            ["windows", *key]]
+
+
+def test_bulk_batch_equals_single_process(bulk, bulk_want):
+    """Four processes of one shard each over the bench formula's first
+    300 rules and a bulk1m-shaped batch (64 x 64 KiB, 2-8 rule plants a
+    block): every process's lists equal the JAX package's and the port's
+    single-process scan_batch."""
+    assert all(bulk_want) and sum(map(len, bulk_want)) >= 5 * 64
+    for r in bulk:
+        assert _lists(r["bulk"]) == bulk_want, f"process {r['process_id']}"
+
+
+def test_host_stages_run_on_own_shards_only(bulk):
+    """Each process flattened, uploaded, confirmed and ran verify_pairs
+    and finish_confirmed over its own shard's blocks and nothing else."""
+    blocks = W.bulk_blocks()
+    groups = PS.partition_blocks(blocks, 4)
+    assert all(len(g) == 16 for g in groups)
+    for r in bulk:
+        assert r["bulk_stages"] == _shard_stages(
+            blocks, groups[r["process_id"]]), f"process {r['process_id']}"
+
+
+def test_exchange_carries_the_foreign_shards(bulk, bulk_want):
+    """With `_gather_pairs` keeping each process's own shard only, a
+    process keeps its own blocks' matches and loses every other's."""
+    groups = PS.partition_blocks(W.bulk_blocks(), 4)
+    for r in bulk:
+        own = set(groups[r["process_id"]])
+        got = _lists(r["own_only"])
+        for i, want in enumerate(bulk_want):
+            assert got[i] == (want if i in own else []), (r["process_id"], i)
+
+
+def test_bulk_process_without_blocks_joins_the_exchange(bulk, bulk_ref):
+    """Two 64 KiB blocks fill the shards of processes 0 and 1: processes
+    2 and 3 flatten, upload and verify nothing, still join the exchange,
+    and return the same lists."""
+    blocks = W.bulk_blocks()[:2]
+    want = hs.scan_batch(bulk_ref, blocks)
+    assert all(want)
+    for r in bulk:
+        assert _lists(r["lopsided"]) == want, f"process {r['process_id']}"
+        pid = r["process_id"]
+        assert r["lopsided_stages"] == (
+            _shard_stages(blocks, [pid]) if pid < 2 else [])

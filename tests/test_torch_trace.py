@@ -2,22 +2,31 @@
 CPU: the spans a profiled block call and StreamSet round export and how
 they nest, a span count that does not grow with the batch, the no-op
 while no profiler records, self time over nested spans on two threads,
-and the `redispatches`, `chain_exprs` and `chain_passes` counters."""
+the `redispatches`, `chain_exprs` and `chain_passes` counters, and on a
+mesh of two processes (tests/torch_multihost_worker.py, mode "trace2")
+the `hs.exchange` span, the `exchanges` and `exchange_bytes` counters and
+host stage spans of the process's own shards alone."""
 
 import json
+import os
+import sys
 import threading
 
+import pytest
 import torch
 
 import hyperscan_tpu_torch as ht
+from hyperscan_tpu_torch import parallel as P
 from hyperscan_tpu_torch import trace as T
 from hyperscan_tpu_torch.runtime import streamset as SS
 from hyperscan_tpu_torch.runtime.smallwrite import HOST_SCAN_LIMIT
 
+sys.path.insert(0, os.path.dirname(__file__))
+import torch_multihost_worker as W  # noqa: E402
+
 CPU = "cpu"
 # three chain expressions (ids 1-3) and a plain literal (id 4)
-PATTERNS = [r"lead\d{4,}tail", r"alpha[a-z]{2,}omega", r"gamma\s+delta",
-            "attack"]
+PATTERNS = W.TRACE_PATTERNS
 BLOCK_SPANS = {"hs.scan_batch", "hs.reports", "hs.assemble", "hs.upload",
                "hs.dispatch", "hs.fetch", "hs.verify", "hs.windows",
                "hs.chains"}
@@ -241,3 +250,55 @@ def test_chain_passes_do_not_grow_with_the_chains():
         assert T.COUNTS["chain_exprs"] - before["chain_exprs"] == n
         seen.append(T.COUNTS["chain_passes"] - before["chain_passes"])
     assert seen == [2, 2, 2, 0]
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """Two processes of two CPU shards each: one profiled scan_batch(mesh=)
+    over W.trace_blocks() (two blocks a shard) on each."""
+    return W.spawn("trace2", str(tmp_path_factory.mktemp("trace_mh") / "t"))
+
+
+def test_exchange_span_once_an_exchange_on_a_distributed_mesh(mesh_runs):
+    """On a mesh of two processes a call opens hs.exchange once, under
+    hs.scan_batch, and raises `exchanges` by one and `exchange_bytes` by
+    the bytes of the pairs handed to the gathers (`_gather_pairs`)."""
+    for r in mesh_runs:
+        assert r["equal"], r["process_id"]
+        (ex,) = [e for e in r["events"] if e["name"] == "hs.exchange"]
+        assert _inside(ex, _one(r["events"], "hs.scan_batch"))
+        assert r["spans"]["hs.exchange"] == 1
+        assert r["rise"]["exchanges"] == r["counts"]["exchanges"] == 1
+        (handed,) = r["handed"]
+        assert handed > 0
+        assert r["rise"]["exchange_bytes"] == handed
+        assert r["counts"]["exchange_bytes"] == handed
+
+
+def test_no_exchange_off_a_distributed_mesh():
+    """Without a mesh and on a mesh of one process no call opens
+    hs.exchange or raises the exchange counters."""
+    db = _db()
+    blocks = W.trace_blocks()
+    for kw in ({"device": CPU}, {"mesh": P.make_mesh(4, device=CPU)}):
+        ht.scan_batch(db, blocks, **kw)
+        before = dict(T.COUNTS)
+        spans = _spans_of(lambda: ht.scan_batch(db, blocks, **kw))
+        assert "hs.exchange" not in spans and "hs.verify" in spans
+        assert T.COUNTS["exchanges"] == before["exchanges"]
+        assert T.COUNTS["exchange_bytes"] == before["exchange_bytes"]
+
+
+def test_host_stage_spans_count_own_shards(mesh_runs):
+    """A process of a two-process mesh opens hs.verify, hs.windows and
+    hs.chains once for each of its two shards; one process over the same
+    four shards opens them four times."""
+    db = _db()
+    blocks = W.trace_blocks()
+    mesh = P.make_mesh(4, device=CPU)
+    ht.scan_batch(db, blocks, mesh=mesh)
+    one = _spans_of(lambda: ht.scan_batch(db, blocks, mesh=mesh))
+    for name in ("hs.verify", "hs.windows", "hs.chains"):
+        assert one[name] == 4, name
+        for r in mesh_runs:
+            assert r["spans"][name] == 2, (name, r["process_id"])
