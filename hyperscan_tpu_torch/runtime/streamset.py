@@ -9,7 +9,11 @@ filter dispatch per round and keeps per-stream runtime state vectorized:
 
 - `offsets` / histories as arrays, advanced with O(1) numpy per round
   (the per-stream Python of `scan_streams` costs ~5-10 us/stream/write —
-  at 4096 streams that alone caps aggregate throughput below 1 GB/s);
+  at 4096 streams that alone caps aggregate throughput below 1 GB/s):
+  the histories are packed end to end in one buffer (`_History`), and a
+  round's extents are stitched from them and the new chunks with no
+  per-stream Python where the lengths are uniform (`_stitch`), straight
+  into pinned host memory when the round uploads to a card;
 - boundary dedupe / SINGLEMATCH / combination state held sparsely, only
   for streams that actually matched (dict-of-sets keyed by stream index);
 - the literal filter runs over the whole concatenated extent corpus —
@@ -48,7 +52,7 @@ from ..flags import HS_MODE_STREAM, HS_MODE_VECTORED, base_mode, \
     som_horizon_span
 from ..flags import (HS_FLAG_QUIET, HS_FLAG_SINGLEMATCH,
                      HS_FLAG_SOM_LEFTMOST, HS_OFFSET_PAST_HORIZON)
-from ..trace import spanned
+from ..trace import count, spanned
 from .lit_runtime import LEAD_BOUNDARY
 from .stream import Stream, _engine_pass, _update_chain_state, \
     history_required, stream_device
@@ -82,10 +86,8 @@ class StreamSet:
     size: int
     device: torch.device  # where its rounds scan
     offsets: np.ndarray  # int64[S] absolute bytes consumed
-    # per-stream history tails (<= history_required): either a uniform
-    # [S, hlen] uint8 array (bulk path: O(1) numpy per round) or a ragged
-    # list of bytes/uint8 views
-    hist: object
+    # per-stream history tails (<= history_required), flat (_History)
+    hist: "_History"
     terminated: np.ndarray  # bool[S]
     closed: np.ndarray  # bool[S]
     # sparse per-stream sets, allocated only for streams that matched
@@ -116,28 +118,87 @@ def open_streamset(db: Database, size: int, device="cuda") -> StreamSet:
         size=size,
         device=stream_device(device),
         offsets=np.zeros(size, dtype=np.int64),
-        hist=np.zeros((size, 0), dtype=np.uint8),
+        hist=_History.empty(size),
         terminated=np.zeros(size, dtype=bool),
         closed=np.zeros(size, dtype=bool),
         engine_states=[[e.start_state] * size for e in db.engines],
     )
 
 
-def _hist_lens(ss: StreamSet) -> np.ndarray:
-    if isinstance(ss.hist, np.ndarray):
-        return np.full(ss.size, ss.hist.shape[1], dtype=np.int64)
-    return np.asarray([len(h) for h in ss.hist], dtype=np.int64)
+class _History:
+    """Every stream's history tail, packed end to end in stream order:
+    stream i's is `buf[off[i]:off[i] + lens[i]]`, `off` the exclusive
+    cumsum of `lens`. `buf` is a copy of its own, which nothing writes
+    again: a round replaces the whole object, so a handle or a saved
+    `_History` keeps reading the bytes it saw. Indexing and iteration
+    give uint8 views."""
+
+    __slots__ = ("buf", "off", "lens")
+
+    def __init__(self, buf: np.ndarray, lens: np.ndarray):
+        self.buf = buf  # uint8, C-contiguous, len == lens.sum()
+        self.off = _exclusive_cumsum(lens)  # int64[S]
+        self.lens = lens  # int64[S]
+
+    @classmethod
+    def empty(cls, size: int) -> "_History":
+        return cls(np.zeros(0, dtype=np.uint8),
+                   np.zeros(size, dtype=np.int64))
+
+    def __len__(self) -> int:
+        return len(self.off)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        o = int(self.off[i])
+        return self.buf[o:o + int(self.lens[i])]
+
+    def __iter__(self):
+        for o, n in zip(self.off.tolist(), self.lens.tolist()):
+            yield self.buf[o:o + n]
 
 
-def _hist_bytes(ss: StreamSet, i: int) -> bytes:
-    h = ss.hist[i]
-    return h if isinstance(h, bytes) else bytes(h)
+def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(a), dtype=np.int64)
+    if len(a) > 1:
+        np.cumsum(a[:-1], out=out[1:])
+    return out
 
 
-def _hist_as_list(ss: StreamSet) -> list:
-    if isinstance(ss.hist, np.ndarray):
-        ss.hist = [row.tobytes() for row in ss.hist]
-    return ss.hist
+def _pack(buf: np.ndarray, off: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The segments `buf[off[i]:off[i] + lens[i]]` copied end to end into
+    a new uint8 array: one strided copy when they share a length and lie
+    at one stride, else one gather."""
+    S = len(lens)
+    n = int(lens[0]) if S else 0
+    step = int(off[1] - off[0]) if S > 1 else 0
+    if S and (lens == n).all() and step >= 0 and (np.diff(off) == step).all():
+        return np.lib.stride_tricks.as_strided(
+            buf[int(off[0]):], shape=(S, n), strides=(step, 1)).copy().ravel()
+    idx = np.repeat(off - _exclusive_cumsum(lens), lens)
+    return buf[idx + np.arange(len(idx))]
+
+
+def _stitch(dst, hist, hlen, blob, clen) -> None:
+    """Write every stream's extent, its history then its chunk, end to
+    end into `dst`; `hist` and `blob` hold the histories and the chunks
+    packed in stream order. Two strided copies when every history has
+    one length and every chunk one, else a loop over the streams."""
+    S = len(hlen)
+    if S == 0:
+        return
+    h, c = int(hlen[0]), int(clen[0])
+    if (hlen == h).all() and (clen == c).all():
+        d = dst.reshape(S, h + c)
+        d[:, :h] = hist.reshape(S, h)
+        d[:, h:] = blob.reshape(S, c)
+        return
+    for s, ho, hn, co, cn in zip(_exclusive_cumsum(hlen + clen).tolist(),
+                                 _exclusive_cumsum(hlen).tolist(),
+                                 hlen.tolist(),
+                                 _exclusive_cumsum(clen).tolist(),
+                                 clen.tolist()):
+        dst[s:s + hn] = hist[ho:ho + hn]
+        dst[s + hn:s + hn + cn] = blob[co:co + cn]
 
 
 def streamset_stream(ss: StreamSet, i: int) -> Stream:
@@ -150,7 +211,7 @@ def streamset_stream(ss: StreamSet, i: int) -> Stream:
             "(offsets/history already advanced, report state has not)")
     s = Stream(db=ss.db, device=ss.device)
     s.offset = int(ss.offsets[i])
-    s.history = _hist_bytes(ss, i)
+    s.history = ss.hist[i].tobytes()
     s.terminated = bool(ss.terminated[i])
     s.closed = bool(ss.closed[i])
     s.engine_states = [ss.engine_states[ei][i]
@@ -175,7 +236,12 @@ def streamset_load(ss: StreamSet, i: int, s: Stream) -> None:
         raise InvalidError(
             "finish outstanding writes before loading stream state")
     ss.offsets[i] = s.offset
-    _hist_as_list(ss)[i] = s.history
+    o, n = int(ss.hist.off[i]), int(ss.hist.lens[i])
+    lens = ss.hist.lens.copy()
+    lens[i] = len(s.history)
+    ss.hist = _History(np.concatenate(
+        [ss.hist.buf[:o], np.frombuffer(bytes(s.history), dtype=np.uint8),
+         ss.hist.buf[o + n:]]), lens)
     ss.terminated[i] = s.terminated
     ss.closed[i] = s.closed
     for ei in range(len(ss.db.engines)):
@@ -277,8 +343,10 @@ def streamset_write_start(
 
     Two entry forms:
     - `chunks`: per-stream write payloads (host bytes). Extents are
-      stitched here; the filter runs on host (small totals) or on the
-      streamset's device (large totals, extents uploaded once).
+      stitched here in one pass, into pinned host memory when the round
+      uploads to a CUDA device (counter `stitch_pinned`); the filter runs
+      on host (small totals) or on the streamset's device (large totals,
+      extents uploaded once).
     - `ext_np` (+ optional `ext_t`): the caller already holds the
       concatenated history+chunk extents — `ext_np` as a flat host uint8
       mirror and (optionally) `ext_t` as the same bytes in a flat uint8
@@ -299,30 +367,39 @@ def streamset_write_start(
     if chunks is not None:
         if len(chunks) != S:
             raise InvalidError("chunks length != streamset size")
-        chunks = [bytes(c) for c in chunks]
-        lens = np.asarray([len(c) for c in chunks], dtype=np.int64)
-        hl = _hist_lens(ss)
-        parts: List[bytes] = []
-        for h, c in zip(ss.hist, chunks):
-            parts.append(h if isinstance(h, bytes) else
-                         np.ascontiguousarray(h).data)
-            parts.append(c)
-        flat = b"".join(parts)
-        ext_np = np.frombuffer(flat, dtype=np.uint8)
+        if not set(map(type, chunks)) <= {bytes}:
+            chunks = [bytes(c) for c in chunks]
+        lens = np.fromiter(map(len, chunks), dtype=np.int64, count=S)
+        hl = ss.hist.lens
     else:
         if ext_np is None:
             raise InvalidError("need chunks or ext_np")
         if chunk_lens is None:
             raise InvalidError("ext_np form requires chunk_lens")
         lens = np.asarray(chunk_lens, dtype=np.int64)
-        hl = _hist_lens(ss) if hlens is None else \
+        hl = ss.hist.lens if hlens is None else \
             np.asarray(hlens, dtype=np.int64)
     ext_lens = hl + lens
-    starts = np.zeros(S, dtype=np.int64)
-    if S > 1:
-        np.cumsum(ext_lens[:-1], out=starts[1:])
+    starts = _exclusive_cumsum(ext_lens)
     ends = starts + ext_lens
     total_ext = int(ends[-1]) if S else 0
+    from .smallwrite import HOST_SCAN_LIMIT
+
+    limit = getattr(db, "host_scan_limit", HOST_SCAN_LIMIT)
+    on_device = db.lit is not None and (ext_t is not None
+                                        or total_ext > limit)
+    if chunks is not None:
+        # the upload reads the buffer the stitch writes: pinned when it
+        # is a DMA to a card. Each round takes a buffer of its own, held
+        # by its handle
+        pinned = on_device and ext_t is None and ss.device.type == "cuda"
+        ext_np = (torch.empty(total_ext, dtype=torch.uint8,
+                              pin_memory=True).numpy() if pinned
+                  else np.empty(total_ext, dtype=np.uint8))
+        blob = np.frombuffer(b"".join(chunks), dtype=np.uint8)
+        _stitch(ext_np, ss.hist.buf, hl, blob, lens)
+        if pinned:
+            count("stitch_pinned")
     if total_ext != int(ext_np.shape[0]):
         raise InvalidError("ext_np length != sum of extents")
     anchored = (ss.offsets - hl) == 0
@@ -332,7 +409,8 @@ def streamset_write_start(
         prev_offsets=ss.offsets.copy(),
         hlens=hl, lens=lens, starts=starts, ends=ends,
         ext_np=ext_np, anchored=anchored,
-        chunks=chunks if db.engines else None,
+        # a copy: the caller may refill its list before the finish
+        chunks=list(chunks) if db.engines and chunks is not None else None,
     )
     if db.engines and chunks is None:
         # engine pass needs the chunk payloads; slice them from ext_np
@@ -343,11 +421,10 @@ def streamset_write_start(
 
     # literal filter dispatch
     if db.lit is not None:
-        from .smallwrite import HOST_SCAN_LIMIT, teddy_filter_host
+        from .smallwrite import teddy_filter_host
 
-        limit = getattr(db, "host_scan_limit", HOST_SCAN_LIMIT)
         total = total_ext
-        if ext_t is not None or total > limit:
+        if on_device:
             from ..ops.teddy import corpus_tensor
             from ..ops.teddy_families import confirm_start
 
@@ -367,21 +444,16 @@ def streamset_write_start(
             h.host_pairs = confirm_candidates(
                 db.lit, ext_np, starts, pos, words)
 
-    # state advance: next round's extents stitch on the new history
+    # state advance: next round's extents stitch on the new history, the
+    # tail of each extent, copied out so that nothing holds the extents
     hist_req = history_required(db)
     ss.offsets = ss.offsets + lens
     if hist_req == 0 or S == 0:
-        ss.hist = np.zeros((S, 0), dtype=np.uint8)
-    elif (ext_lens == ext_lens[0]).all():
-        # uniform extents: one reshape+slice, O(1) Python per round
-        ext2d = ext_np.reshape(S, int(ext_lens[0]))
-        ss.hist = ext2d[:, -min(hist_req, int(ext_lens[0])):]
+        ss.hist = _History.empty(S)
     else:
-        ss.hist = [
-            ext_np[max(int(starts[i]), int(ends[i]) - hist_req):
-                   int(ends[i])].tobytes()
-            for i in range(S)
-        ]
+        keep = np.minimum(ext_lens, hist_req)
+        ss.hist = _History(_pack(np.ascontiguousarray(ext_np, dtype=np.uint8),
+                                 ends - keep, keep), keep)
     ss.seq_started += 1
     return h
 

@@ -47,6 +47,10 @@ Counters, raised once per stage and never per match, flow or block:
   processes;
 - `COUNTS["exchange_bytes"]`: the bytes of the pairs this process hands
   to those exchanges (int64, 16 a pair), raised once an exchange;
+- `COUNTS["stitch_pinned"]`: StreamSet write rounds whose extents
+  `runtime.streamset.streamset_write_start`'s `chunks` form stitched
+  into pinned host memory for their upload to a CUDA device, once a
+  round;
 - `ops._build.LAUNCHES`: launches per CUDA kernel;
 - `ops.teddy_families.FamilyState.dispatches`: per literal database,
   dispatches by family.
@@ -65,7 +69,7 @@ from torch.autograd import profiler as _profiler
 
 COUNTS: Dict[str, int] = {"redispatches": 0, "chain_exprs": 0,
                           "chain_passes": 0, "exchanges": 0,
-                          "exchange_bytes": 0}
+                          "exchange_bytes": 0, "stitch_pinned": 0}
 
 _lock = threading.Lock()
 _local = threading.local()  # .stack: the thread's open spans

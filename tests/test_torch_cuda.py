@@ -921,6 +921,69 @@ def test_streamset_round_on_card_equals_cpu(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("in_flight", [2, 3])
+def test_streamset_chunks_rounds_pinned_on_card_equal_cpu(card, in_flight):
+    """`chunks` rounds on the card, over 200 KiB of extents each and
+    `in_flight` rounds started before the oldest finishes, equal the same
+    writes on the CPU round by round, history by history and at the
+    close. Every round's extents were stitched into pinned memory of
+    their own (`stitch_pinned`) and were not written again while their
+    finish could read them; the histories are copies, sharing no memory
+    with any round's extents."""
+    from collections import deque
+
+    from hyperscan_tpu_torch import trace as TR
+
+    db = ht.compile_multi(KC_PATS, ids=list(range(len(KC_PATS))),
+                          mode=ht.HS_MODE_STREAM)
+    S, rounds = 64, 7
+    rng = np.random.default_rng(in_flight)
+    flows = [_gated_corpus(rounds * 4000, 7 * i + in_flight).tobytes()
+             for i in range(S)]
+    cuts = (np.arange(1, rounds) * 4000
+            + rng.integers(-1900, 1900, (S, rounds - 1)))
+    cuts[::9, 2] = cuts[::9, 1]  # empty writes
+    cuts[1::9, 3] = cuts[1::9, 2] + 5  # writes shorter than the history
+    bounds = np.concatenate([np.zeros((S, 1), np.int64), cuts,
+                             np.full((S, 1), rounds * 4000)], axis=1)
+    writes = [[flows[i][bounds[i, r]:bounds[i, r + 1]] for i in range(S)]
+              for r in range(rounds)]
+    assert all(sum(map(len, w)) > 200 << 10 for w in writes)
+    ref = SS.open_streamset(db, S, device="cpu")
+    want, want_hist = [], []
+    for w in writes:
+        want.append(SS.scan_streamset(db, ref, w))
+        want_hist.append([bytes(h) for h in ref.hist])
+    ss = SS.open_streamset(db, S, device=card)
+    before = dict(TR.COUNTS)
+    pending, got = deque(), []
+
+    def finish():
+        h, snap, r = pending.popleft()
+        assert h.ext_np.tobytes() == snap, r
+        got.append(SS.streamset_write_finish(db, ss, h))
+
+    for r, w in enumerate(writes):
+        h = SS.streamset_write_start(db, ss, w)
+        assert h.dev_handle is not None
+        assert torch.from_numpy(h.ext_np).is_pinned()
+        assert [bytes(x) for x in ss.hist] == want_hist[r]
+        pending.append((h, h.ext_np.tobytes(), r))
+        live = [p[0].ext_np for p in pending]
+        assert not any(np.shares_memory(a, b)
+                       for k, a in enumerate(live) for b in live[k + 1:])
+        assert not any(np.shares_memory(ss.hist.buf, a) for a in live)
+        if len(pending) == in_flight:
+            finish()
+            assert [bytes(x) for x in ss.hist] == want_hist[r]
+    while pending:
+        finish()
+    assert got == want and sum(len(m) for r in got for m in r) > 100
+    assert TR.COUNTS["stitch_pinned"] - before["stitch_pinned"] == rounds
+    assert SS.close_streamset(db, ss) == SS.close_streamset(db, ref)
+
+
+@pytest.mark.cuda
 def test_stream_engines_on_card_equal_cpu(card):
     """Large stream writes of a bounded DFA scan on kernel C entered in
     the carried states and equal the CPU's; scan_streams(threads=2) makes

@@ -291,3 +291,187 @@ def test_streamset_guards_and_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             PSS.open_streamset(db, 1)
+
+
+# --- the round's extents: one stitch from the flat histories -----------------
+
+
+def _ragged_writes(rng, S, rounds, hreq):
+    """Writes of mixed lengths: empty ones, ones shorter than the history
+    requirement and longer ones, salted like _gen_writes'."""
+    base = _gen_writes(rng, S, rounds)
+    sizes = [0, 1, max(1, hreq // 2), max(1, hreq - 1), hreq + 3, 90]
+    return [[(w * 4)[:sizes[int(rng.integers(0, len(sizes)))]]
+             if rng.random() < 0.6 else w for w in per] for per in base]
+
+
+def _hist_of(ss):
+    return [bytes(h) for h in ss.hist]
+
+
+@pytest.mark.parametrize("dbname", ["literal", "chains", "validators"])
+@pytest.mark.parametrize("case", ["ragged", "early", "load", "in_flight3"])
+def test_streamset_stitched_rounds_equal_reference(dbname, case):
+    """Rounds whose extents the stitch builds from the flat histories
+    equal the reference's StreamSet on the same writes, round by round,
+    history by history and at the close: ragged writes (empty ones,
+    ones shorter than the history requirement), early rounds whose
+    history is still shorter than the requirement, a stream loaded
+    mid-sequence, and three rounds started before the first finish.
+    The next round's histories are copied out of the round's extents,
+    so they share no memory with them."""
+    rdb, pdb = _both(dbname)
+    hreq = history_required(pdb)
+    rng = np.random.default_rng(sum(map(ord, dbname + case)))
+    S, ROUNDS = 6, 6
+    if case == "early":
+        writes = [[c[:int(rng.integers(0, 4))] for c in per]
+                  for per in _gen_writes(rng, S, 3)]
+        writes += _ragged_writes(rng, S, ROUNDS - 3, hreq)
+    else:
+        writes = _ragged_writes(rng, S, ROUNDS, hreq)
+    assert any(len(c) == 0 for per in writes for c in per)
+    assert any(0 < len(c) < hreq for per in writes for c in per)
+    rss = RSS.open_streamset(rdb, S)
+    pss = PSS.open_streamset(pdb, S, device=CPU)
+    if case == "in_flight3":
+        for r0 in range(0, ROUNDS, 3):
+            rh = [RSS.streamset_write_start(rdb, rss, w)
+                  for w in writes[r0:r0 + 3]]
+            ph = [PSS.streamset_write_start(pdb, pss, w)
+                  for w in writes[r0:r0 + 3]]
+            assert all(np.shares_memory(a.ext_np, b.ext_np) is False
+                       for a, b in zip(ph, ph[1:]))
+            assert not any(np.shares_memory(pss.hist.buf, h.ext_np)
+                           for h in ph)
+            want = [RSS.streamset_write_finish(rdb, rss, h) for h in rh]
+            got = [PSS.streamset_write_finish(pdb, pss, h) for h in ph]
+            assert got == want, r0
+            assert _hist_of(pss) == _hist_of(rss)
+    else:
+        for r, w in enumerate(writes):
+            if case == "load" and r == 3:
+                s = ht.open_stream(pdb, device=CPU)
+                ht.scan_stream(s, b"zz foomark123" + bytes(hreq))
+                blob = ht.compress_stream(s)
+                RSS.streamset_load(rss, 2, hs.expand_stream(rdb, blob))
+                PSS.streamset_load(pss, 2,
+                                   ht.expand_stream(pdb, blob, device=CPU))
+                assert _hist_of(pss) == _hist_of(rss)
+                assert bytes(pss.hist[2]) == \
+                    ht.expand_stream(pdb, blob, device=CPU).history
+            h = PSS.streamset_write_start(pdb, pss, w)
+            assert not np.shares_memory(pss.hist.buf, h.ext_np)
+            got = PSS.streamset_write_finish(pdb, pss, h)
+            assert got == RSS.scan_streamset(rdb, rss, w), r
+            assert _hist_of(pss) == _hist_of(rss), r
+            assert all(len(x) <= hreq for x in pss.hist)
+            if case == "early" and r < 2:
+                assert all(len(x) < hreq for x in pss.hist)
+    for i in range(S):
+        assert PSS.streamset_stream(pss, i).history == \
+            RSS.streamset_stream(rss, i).history
+    assert PSS.close_streamset(pdb, pss) == RSS.close_streamset(rdb, rss)
+
+
+_STITCH_SHAPES = {
+    "uniform": ([5] * 4, [7] * 4),
+    "ragged": ([0, 3, 5, 1], [7, 0, 2, 9]),
+    "empty_chunks": ([4, 4, 4], [0, 0, 0]),
+    "no_history": ([0] * 5, [3, 1, 4, 1, 5]),
+    "one": ([6], [11]),
+    "none": ([], []),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_STITCH_SHAPES))
+def test_stitch_equals_concatenation(shape):
+    """`_stitch` writes each stream's history then its chunk, end to end,
+    from the packed histories and the packed chunks: uniform and ragged
+    extents, empty chunks, no histories, one stream and none."""
+    hlen, clen = (np.asarray(x, dtype=np.int64)
+                  for x in _STITCH_SHAPES[shape])
+    rng = np.random.default_rng(len(hlen))
+    hist = rng.integers(0, 256, int(hlen.sum()), dtype=np.uint8)
+    blob = rng.integers(0, 256, int(clen.sum()), dtype=np.uint8)
+    hoff, coff = PSS._exclusive_cumsum(hlen), PSS._exclusive_cumsum(clen)
+    want = b"".join(hist[o:o + n].tobytes() + blob[c:c + m].tobytes()
+                    for o, n, c, m in zip(hoff, hlen, coff, clen))
+    dst = np.full(int((hlen + clen).sum()), 0xAA, dtype=np.uint8)
+    PSS._stitch(dst, hist, hlen, blob, clen)
+    assert dst.tobytes() == want
+
+
+@pytest.mark.parametrize("shape", sorted(_STITCH_SHAPES))
+@pytest.mark.parametrize("spread", [False, True])
+def test_pack_equals_slices(shape, spread):
+    """`_pack` copies each segment of a buffer end to end into memory of
+    its own: segments at one stride (the strided copy) or scattered and
+    overlapping (the gather)."""
+    lens = np.asarray(_STITCH_SHAPES[shape][0], dtype=np.int64)
+    S = len(lens)
+    rng = np.random.default_rng(S + 10 * spread)
+    off = (rng.integers(0, 40, S).astype(np.int64) if spread
+           else np.arange(S, dtype=np.int64) * 9 + 2)
+    buf = rng.integers(0, 256, 64, dtype=np.uint8)
+    got = PSS._pack(buf, off, lens)
+    assert got.tobytes() == b"".join(buf[o:o + n].tobytes()
+                                     for o, n in zip(off, lens))
+    assert got.dtype == np.uint8 and not np.shares_memory(got, buf)
+
+
+@pytest.mark.parametrize("dbname", ["literal", "chains"])
+def test_streamset_ext_np_buffer_refilled(dbname):
+    """A caller of the `ext_np` form may refill its staging buffer once a
+    round has finished: the next round's histories are copies, so
+    rounds built in one reused buffer equal the reference's StreamSet
+    on the same writes."""
+    rdb, pdb = _both(dbname)
+    rng = np.random.default_rng(43)
+    S = 5
+    writes = (_gen_writes(rng, S, 2)
+              + _ragged_writes(rng, S, 3, history_required(pdb)))
+    rss = RSS.open_streamset(rdb, S)
+    pss = PSS.open_streamset(pdb, S, device=CPU)
+    staging = np.zeros(1 << 12, dtype=np.uint8)
+    for r, w in enumerate(writes):
+        ext = b"".join(bytes(h) + c for h, c in zip(pss.hist, w))
+        staging[:len(ext)] = np.frombuffer(ext, dtype=np.uint8)
+        h = PSS.streamset_write_start(
+            pdb, pss, ext_np=staging[:len(ext)],
+            chunk_lens=np.asarray([len(c) for c in w], dtype=np.int64))
+        got = PSS.streamset_write_finish(pdb, pss, h)
+        staging[:] = 0xFF
+        assert got == RSS.scan_streamset(rdb, rss, w), r
+        assert _hist_of(pss) == _hist_of(rss), r
+    assert PSS.close_streamset(pdb, pss) == RSS.close_streamset(rdb, rss)
+
+
+def test_streamset_chunks_of_other_buffer_types():
+    """Chunks that are not `bytes` (bytearray, memoryview, uint8 arrays)
+    stitch like their bytes; the engines keep them as bytes, and a list
+    the caller refills between a round's start and its finish does not
+    reach them."""
+    _r, pdb = _both("engines")
+    rng = np.random.default_rng(2)
+    S = 3
+    writes = _gen_writes(rng, S, 3)
+    a = PSS.open_streamset(pdb, S, device=CPU)
+    b = PSS.open_streamset(pdb, S, device=CPU)
+    kinds = (bytearray, memoryview,
+             lambda c: np.frombuffer(c, dtype=np.uint8))
+    for w in writes:
+        mixed = [k(c) for k, c in zip(kinds, w)]
+        assert PSS.scan_streamset(pdb, b, mixed) == \
+            PSS.scan_streamset(pdb, a, w)
+        assert _hist_of(a) == _hist_of(b)
+    got = []
+    for w in ([b"call 555-12", b"qab", b"x"],
+              [b"12 then 555-1212", b"cd7end", b"qz7end"]):
+        listed = list(w)
+        h = PSS.streamset_write_start(pdb, b, listed)
+        listed[:] = [bytes(len(c)) for c in w]
+        got.append(PSS.streamset_write_finish(pdb, b, h))
+        assert got[-1] == PSS.scan_streamset(pdb, a, w)
+        assert _hist_of(a) == _hist_of(b)
+    assert sum(map(len, got[-1])) >= 3
