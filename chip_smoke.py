@@ -1,150 +1,118 @@
 """Chip smoke test of the PyTorch/CUDA port (hyperscan_tpu_torch) on one
-NVIDIA card.
+NVIDIA card: every path of the port at full width, held to exactness.
+It times nothing: the per-kernel times are tools_torch_bench_kernels.py's
+and tools_torch_probe_kconfirm.py's, the end-to-end ones benchmark/'s.
 
 Usage, from the root of the repository on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero. Every comparison is exact
+(every value is an integer).
 
 1. Build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together).
-2. Kernel checks: compile the 100- and 10k-pattern bench rulesets and,
-   on 16 MB corpora, hold kernel A (teddy_filter_compact, class and byte
-   tables) and kernel B (teddy_hash_confirm) against their plain PyTorch
-   versions on the card. Then compile one database per general-engine
-   route (the JAX package's per-kernel bench sets) and hold kernel C
-   (dfa_scan: a bounded DFA from its start state and from carried
-   states, H = 0 with carried entry states, the lazy-DFA core of a
-   cyclic NFA; each with shared and with global tables, and at a cap
-   below its total, which must stay exact) and kernel D (nfa_layered:
-   EOD accepts, P > 48, the bench engine, a 45-class engine and P = 502)
-   against theirs over a 16 MB batch of blocks.
-   Kernel B's edge cases (every position of a 2^20 + 5 byte corpus as
-   the list, on a tensor ending at n and on one starting 3 bytes past an
-   8-byte boundary; the list behind -1s; every candidate hitting; cap2
-   below the total, which stays exact; more groups than the kernel
-   stages in shared memory; the empty list and a list of -1s).
-   Then (2c) the literal families' kernels on the 10k ruleset at 16 MB,
-   structured and iid, and on a flood database (`aaaa` over a run of
-   `a`): the gate (row flags, K), the survivor-row
-   rescan (positions, counts), kconfirm (the four counters and each
-   cell's matches) and the plane mode and its extraction (the plane,
-   (total, hit chunks), positions). Then (2d) kernel 7 (teddy_words,
-   count mode with its cell and segment counts, list mode from the
-   segment counts) on the 10k ruleset's masks at 16 MB, structured and
-   iid, on the class tables and on the byte tables, also at an unaligned
-   length with a look-back head; its candidates must equal kernel A's;
-   and dfa_scan_batch (kernel C's
-   row mode, one launch a call; its tables in shared and in global
-   memory) on a bounded-DFA batch of 1,024 x 16 KiB rows.
-   Then (2e) kernel 4's stage modes 0-2 (row 11) on the 10k ruleset at
-   16 MB, structured and iid; stage 3's counts must equal stage 0's and
-   stage 2's. Tolerance: exact (every value is an integer).
+2. Kernel checks at 16 MB, each kernel against its plain PyTorch version
+   on the card: kernel A (teddy_filter_compact, class and byte tables)
+   and kernel B (teddy_hash_confirm) with the 100- and 10k-pattern bench
+   rulesets, structured and iid; kernel B's edge cases (every position
+   of a 2^20 + 5 byte corpus as the list, on a tensor ending at n and on
+   one starting 3 bytes past an 8-byte boundary; the list behind -1s;
+   every candidate hitting; cap2 below the total, which stays exact;
+   more groups than the kernel stages in shared memory; the empty list
+   and a list of -1s). (2b) One database per general-engine route (the
+   JAX package's per-kernel bench sets): kernel C (dfa_scan: a bounded
+   DFA from its start state and from carried states, H = 0 with carried
+   entry states, the lazy-DFA core of a cyclic NFA, a DFA past the row
+   mode's shared-table limit; each with shared and with global tables,
+   and at a cap below its total) and kernel D (nfa_layered: EOD accepts,
+   P > 48, the bench engine, a 45-class engine and P = 502) over a 16 MB
+   batch of blocks. (2c) The literal families' kernels on the 10k
+   ruleset, structured and iid, and on a flood database (`aaaa` over a
+   run of `a`): the gate, the survivor-row rescan (with the gate's row
+   counts and without), kconfirm, the plane mode and its extraction.
+   (2d) Kernel 7 (teddy_words, count mode with its cell and segment
+   counts, list mode from the segment counts) on both table routes, also
+   at an unaligned length with a look-back head, its candidates equal to
+   kernel A's; dfa_scan_batch (kernel C's row mode) over 1,024 x 16 KiB
+   rows, its tables in shared and in global memory. (2e) Kernel 4's
+   stage modes 0-2; stage 3's counts equal stage 0's and stage 2's.
 3. The literal path at full size, under the port's default family
    choice: `scan_batch` with the 10k ruleset over a 512 MB corpus,
-   structured and iid, and the flood database over 256 KiB. The planted
-   matches must be found, the verified pairs of the first 64 MB must
-   equal the port's host path (teddy_filter_host + confirm_candidates),
-   the structured scans must have run the gated family and the iid timed
-   scans kconfirm, the flood must demote compact -> dense with n - 3
-   matches, and every literal kernel must have been launched.
-   (3c) Each family forced in turn on both 512 MB corpora: the 64 MB
-   prefix equals the host path, the match lists of all four families
-   are equal, GB/s and a stage breakdown per family; the flood forced
-   compact demotes to dense. The engine path at full size (3b): each
-   route's database through `scan_batch` over 256 MiB, as one block and
-   as 16,384 blocks of 16 KiB; every repeat equals the first scan, the
-   match lists over a 32 MiB prefix equal the port's host path, and
-   kernels C and D must have been launched during these scans. The
-   multi-device path at full size (3d), on make_mesh() (the visible
-   cards) and on a hand-built mesh of four shards on card 0:
-   teddy_scan over both 512 MB corpora (its total equals kernel A's
-   candidate count), sharded_teddy_count (equal to it), scan_batch(mesh=)
-   over 1,024 blocks of 512 KiB (equal to the unsharded scan_batch; GB/s
-   with the upload inside the timed loop), sharded_scan_counts and
-   sharded_scan_matches with the bounded DFA over 16,384 x 16 KiB (equal
-   to the unsharded dfa_scan_batch + extract_matches); kernel 7, kernel C
-   and the filter kernel of the family that each shard ran (the literal
-   path's own family choice) must have been launched. Streaming at full
-   width (3e): the 10k ruleset in stream mode through a StreamSet of
-   16,384 streams x 8 KiB writes (extents made on the host from the
-   JAX package's stream-bench formula, uploaded inside the timed loop,
-   rounds pipelined: start all, one confirm_fetch_many, finish in
-   order; one warm and two timed passes of 6 rounds), scan_streams over
-   1,024 streams x 8 KiB and over 16 streams on the host path, the
-   bounded DFA in stream mode over 1,024 streams x 16 KiB x 8 rounds
-   (kernel C entered in carried states), and scan_streams(mesh=) on both
-   meshes. The first 64 streams of each equal the port's host path and
-   the block scan of their concatenated writes, the sharded writes equal
-   the unsharded, every planted match is found, and the filter kernel of
-   each family that ran and dfa_scan must have been launched. The path's
-   kernels at the path's inputs: the kernels of the family that ran the
-   last timed StreamSet round, on that round's extent tensor and
-   capacities, against their plain versions (and its pair total equal to
-   the round's); kernel C on every round of the bounded-DFA streams,
-   entered in the streams' carried states, against its plain version
-   (records, finals, and finals equal to the states the streams carried
-   out; its tables in shared and in global memory). Exact; their errors
-   join the kernels' `max_abs_err`.
-   The multi-process mesh (3f), run between 3d and 3e: this script
-   starts two worker processes of itself (`--mesh-worker`), which join
-   one `torch.distributed` group through make_multihost_mesh (NCCL, one
-   card a process, where two cards are visible; gloo with both on card
-   0 where one is) and get the databases serialized and the corpora in
-   files. At 3d's width, each runs scan_batch(mesh=) over 1,024 x 512
-   KiB of both 512 MB corpora (the same blocks on every process, each
-   scanning its own shard) and sharded_teddy_count over them, and
-   sharded_scan_counts / sharded_scan_matches with the bounded DFA over
-   its own 8,192 of the 16,384 x 16 KiB rows. Every process's lists
-   must equal 3d's single-process scan_batch, its counts the candidate
-   total and the one-process DFA count, its gathered DFA buffers a
-   one-process sharded_scan_matches on a two-shard mesh, and each must
-   have launched kernel 7's count mode, kernel C's row mode and the
-   filter kernel of every family it ran. A worker that fails fails the
-   phase. `python3 chip_smoke.py --mesh-only` runs this phase alone,
-   with what it compares against made first (for a machine of several
-   cards), and then graft_entry.dryrun_multichip over every visible
-   card.
-   SOM on the card (3g), run after 3e: the first 100 bench patterns
-   without shape 5 (84), SOM_LEFTMOST, through scan_batch over both 512
-   MB corpora (the literal route with reverse back-scan validators), and
-   the first 96 without shape 5 (80), SOM_LEFTMOST, in stream mode
-   through a StreamSet of 4,096 streams x 8 KiB writes (a warm and a
-   timed pass of 6 pipelined rounds). The planted region's matches are
-   exactly each plant's own SOM matches at its known start, the matches
-   of the first 64 MB equal the port's host route on the CPU, the first
-   64 streams of each round equal scan_streams of their writes on the
-   CPU host route, every predicted stream plant is found with its start,
-   and the filter kernel of every family that ran must have been
-   launched; the kernels of the family of the last SOM block scan (on
-   its corpus, uploaded again) and of the last SOM round (on its extent
-   tensor) equal their plain versions (exact; their errors join the
-   kernels' `max_abs_err`). Then the port's bench
-   (hyperscan_tpu_torch/tools/bench.py) at reduced depth: run_config
-   with the 100-pattern database over 64 MiB x 2 scans and run_streamset
-   with the 10k stream database at 1,024 streams x 6 rounds, each
-   asserting its plants.
-4. Times: end-to-end GB/s (the corpus upload is inside the timed loop)
-   and per-kernel times at the main paths' shapes, beside their bounds
-   and their plain versions' times (and torch.nonzero's beside the
-   extraction; kernel B also as its kernel entry alone and at its launch
-   floor); kernel C timed and held against its plain version with
-   its tables in shared and in global memory; the seconds of the
-   speculative scans' host chains. Every
-   literal kernel is held against its plain version at these shapes too
-   (exact), and its `max_abs_err` covers both sizes. (4d) kernel 7's two
-   modes over the 512 MB corpora on both table routes (count mode also
-   over four shard segments, row 8's shape; count + list, teddy_scan's
-   device work) and dfa_scan_batch (kernel C's row mode)
-   over 16,384 x 16 KiB and over one shard's 4,096 rows of it, beside
-   their bounds and plain versions (and the row mode's launches a call,
-   counted); at these
-   shapes too each equals its plain version (exact). (4e) The stage probe
-   (hyperscan_tpu_torch/tools/kconf_probe.py) at 512 MB iid: kernel A's
-   plane mode, kernel 4's stages 0-3, stage 3 + kconf_combine and the
-   kconfirm family end to end; stages 0-2 against their plain versions
-   there too (exact).
+   structured and iid, each twice (the repeat equals the first), and the
+   flood database over 256 KiB. The planted matches are found, the
+   verified pairs of the first 64 MB equal the port's host path
+   (teddy_filter_host + confirm_candidates), the structured scans run the
+   gated family and the iid repeat kconfirm, the flood demotes compact
+   -> dense with n - 3 matches, and every literal kernel is launched;
+   the 10k ruleset's masks compress to class tables.
+   (3c) Each family forced in turn on both 512 MB corpora, each scan
+   twice: the 64 MB prefix equals the host path and the match lists of
+   all four families are equal; the flood forced compact demotes to
+   dense. After each scan of 3 and 3c, the kernels of its family on its
+   corpus, dispatched at the learned capacities, each against its plain
+   version (kernel A on the class and byte tables, kernel B, the gate,
+   the rescan, kconfirm, the plane mode and its extraction), and no cell
+   holds more candidates than the learned capc. (3b) The engine path: each route's database through
+   `scan_batch` over 256 MiB, as one block and as 16,384 blocks of 16
+   KiB, twice; the match lists over a 32 MiB prefix equal the port's
+   host path; kernels C and D are launched, and held against their plain
+   versions at these shapes (C on each DFA route, D on the bench engine
+   and both wide engines). (3d) The multi-device path, on make_mesh()
+   (the visible cards) and on a hand-built mesh of four shards on card
+   0: teddy_scan over both 512 MB corpora (its total and positions equal
+   kernel A's candidates), sharded_teddy_count (equal to it),
+   scan_batch(mesh=) over 1,024 blocks of 512 KiB, twice (equal to the
+   unsharded scan_batch), sharded_scan_counts and sharded_scan_matches
+   with the bounded DFA over 16,384 x 16 KiB (equal to the unsharded
+   dfa_scan_batch + extract_matches); kernel 7, kernel C's row mode and
+   the filter kernel of each family the shards ran are launched; kernel
+   7 over each corpus (both table routes) and dfa_scan_batch over the
+   16,384 rows (one launch a call) equal their plain versions. (3f)
+   The multi-process mesh, run between 3d and 3e: this script starts two
+   worker processes of itself (`--mesh-worker`), which join one
+   `torch.distributed` group through make_multihost_mesh (NCCL, one card
+   a process, where two cards are visible; gloo with both on card 0
+   where one is) and get the databases serialized and the corpora in
+   files; at 3d's width each runs scan_batch(mesh=) (twice) and
+   sharded_teddy_count over both corpora, and the sharded DFA scans over
+   its own 8,192 of the 16,384 rows. Every process's lists equal 3d's
+   single-process scan_batch, its counts the candidate total and the
+   one-process DFA count, its gathered DFA buffers a one-process
+   sharded_scan_matches on a two-shard mesh, and each launches kernel
+   7's count mode, kernel C's row mode and the filter kernel of every
+   family it ran. `python3 chip_smoke.py --mesh-only` runs this phase
+   alone, with what it compares against made first, and then
+   graft_entry.dryrun_multichip over every visible card. (3e) Streaming:
+   the 10k ruleset in stream mode through a StreamSet of 16,384 streams x
+   8 KiB writes (extents from the JAX package's stream-bench formula,
+   rounds pipelined: start all, one confirm_fetch_many, finish in order;
+   two passes of 2 + 6 rounds, equal), scan_streams over 1,024 streams x
+   8 KiB, the bounded DFA in stream mode over 1,024 streams x 16 KiB x 8
+   rounds (kernel C entered in carried states), and scan_streams(mesh=)
+   on both meshes. The first 64 streams of each equal the port's host
+   path and the block scan of their concatenated writes, the sharded
+   writes equal the unsharded, every planted match is found, and the
+   filter kernel of each family that ran and dfa_scan are launched; the
+   kernels of the family of the last StreamSet round, on that round's
+   extent tensor and capacities, equal their plain versions, and kernel C
+   on every round of the bounded-DFA streams, entered in the streams'
+   carried states (its finals equal the states the streams carried
+   out). (3g) SOM: the first 100 bench patterns without shape 5 (84),
+   SOM_LEFTMOST, through scan_batch over both 512 MB corpora, twice, and
+   the first 96 without shape 5 (80) in stream mode through a StreamSet
+   of 4,096 streams x 8 KiB writes (two passes of 6 pipelined rounds,
+   equal). The planted region's matches are exactly each plant's own
+   SOM matches at its known start, the matches of the first 64 MB equal
+   the port's host route on the CPU, the first 64 streams of each round
+   equal scan_streams of their writes on the CPU host route, every
+   predicted stream plant is found with its start, and the filter kernel
+   of every family that ran is launched; the kernels of the family of
+   the last SOM block scan and of the last SOM round equal their plain
+   versions there. Then the port's bench (tools/bench.py) at reduced
+   depth: run_config with the 100-pattern database over 64 MiB x 2 scans
+   and run_streamset with the 10k stream database at 1,024 streams x 6
+   rounds, each asserting its plants.
 5. The differential tools on the card: the port's hscollider over a
    seeded subset of 48 expressions of conformance/signatures.txt (the
    whole battery takes tens of minutes) and three fuzz rounds, each scan
@@ -153,54 +121,55 @@ Phases, in order; any failure exits non-zero:
 6. Chimera on the card: ch_scan over a 2 MiB buffer with plants, its
    prefilter literal-routed, equals ch_scan on the CPU, and a filter
    kernel launched.
-7. The feature surface at full width (hyperscan_tpu_torch/tools/
-   features.py): one small database per feature class of the reference's
-   tests (logical combinations with QUIET sub-expressions, min_offset /
-   max_offset / min_length, SINGLEMATCH, the anchored families, edit and
-   Hamming distance, UTF-8, UTF-8|UCP, bit-NFA blow-ups, ALLOWEMPTY
-   through scan_block_ranges), each over a 256 MiB corpus made on the
-   host from a seed with its plant every ~64 KiB: scan_batch over 16
-   blocks of 16 MiB (the ranges database: scan_block_ranges and
-   scan_count over the whole corpus) gives in every block exactly the
-   matches its plants give under the feature's rules, the first 16 MiB
-   equal the port's host route, each kernel the database ran equals
-   its plain version at the path's input (the literal family's over the
-   scanned corpus, kernels C and D over the last block; these launches
-   not counted), the database serialized and loaded back scans the
-   same; the
+7. The feature surface at full width (tools/features.py): one small
+   database per feature class of the reference's tests (logical
+   combinations with QUIET sub-expressions, min_offset / max_offset /
+   min_length, SINGLEMATCH, the anchored families, edit and Hamming
+   distance, UTF-8, UTF-8|UCP, bit-NFA blow-ups, ALLOWEMPTY through
+   scan_block_ranges), each over a 256 MiB corpus made on the host from
+   a seed with its plant every ~64 KiB: scan_batch over 16 blocks of 16
+   MiB (the ranges database: scan_block_ranges and scan_count over the
+   whole corpus) gives in every block exactly the matches its plants
+   give under the feature's rules, the first 16 MiB equal the port's
+   host route, each kernel the database ran equals its plain version at
+   the path's input (the literal family's over the scanned corpus,
+   kernels C and D over the last block; these launches not counted),
+   the database serialized and loaded back scans the same; the
    combination, anchored and UTF-8 databases also in stream mode through
    a StreamSet of 4,096 streams x 8 KiB x 6 rounds, whose first 64
    streams equal scan_streams on the host route and whose every stream
    reports the purely negative combination at close. Dropping each
    database gives back the card's memory (torch.cuda.memory_allocated
    within 512 bytes of where it stood before it was built); kernels A, B,
-   C and D must have been launched in the phase.
+   C and D are launched in the phase.
 8. The graft entry points and the per-kernel benches
    (hyperscan_tpu_torch/graft_entry.py, tools/kernel_bench.py,
    tools/kconf_bench.py): graft_entry.entry()'s block-scan step on the
-   card (kernel C's row mode), its five outputs equal to
-   entry(device="cpu")'s and its row-mode scan equal to
-   dfa_scan_batch_plain; dryrun_multichip(4) on four shards of card 0
-   (the sharded DFA count equal to its gathered matches, kernel 7's
-   sharded count, scan_batch(mesh=) equal to the unsharded scan); the
-   kconfirm bench at 64 MiB iid with the 10k ruleset (the kconfirm and
-   compact families forced, their verified pairs equal scan by scan);
-   the kernel bench at reduced depth (the four engine benches over a
-   16 MiB block, each kernel first equal to its plain version on that
-   block). Kernels C's row mode, 7's count mode, kconfirm, A and B must
-   have been launched in the phase. Then each kernel at the inputs the
-   phase gave it, against its plain version (these launches not
-   counted): kernel C's row mode on each shard's rows of the dry run's
-   DFA step, kernel 7 on each shard's segment of its filter count, the
-   literal family's kernels on its product corpus (unsharded and each
-   shard's blocks, at their capacities), and kernel 4, or kernels A and
-   B, on the kconfirm bench's last timed scan of each family.
-9. One JSON line listing every kernel (with its launches on the main
-   path, on 3g's SOM path, in 3g's bench run, in phase 7 and in phase 8),
-   the card's name and power limit as nvidia-smi reports them, and the
-   final status line.
+   card, its five outputs equal to entry(device="cpu")'s and its
+   row-mode scan equal to dfa_scan_batch_plain; dryrun_multichip(4) on
+   four shards of card 0 (the sharded DFA count equal to its gathered
+   matches, kernel 7's sharded count, scan_batch(mesh=) equal to the
+   unsharded scan); the kconfirm bench at 64 MiB iid with the 10k
+   ruleset (the kconfirm and compact families forced, their verified
+   pairs equal scan by scan); the kernel bench at reduced depth (every
+   bench over 16 MiB, each kernel first equal to its plain version on
+   its input; its report lines are printed). Kernels C's row mode, 7's
+   count mode, kconfirm, A and B are launched in the phase. Then each
+   kernel at the inputs the phase gave it, against its plain version
+   (these launches not counted): kernel C's row mode on each shard's
+   rows of the dry run's DFA step, kernel 7 on each shard's segment of
+   its filter count, the literal family's kernels on its product corpus
+   (unsharded and each shard's blocks, at their capacities), and kernel
+   4, or kernels A and B, on the kconfirm bench's last scan of each
+   family.
+9. One JSON line listing every kernel with its max abs error over every
+   check of the run and its launches in each counted phase (the main
+   path, the engine and sharded paths, 3g's SOM path and bench run,
+   phase 7 and phase 8), the card's name and power limit as nvidia-smi
+   reports them, and the final status line.
 
-Imports nothing of JAX nor of the JAX package.
+Each log line carries the seconds since the start, and each long phase
+its wall seconds. Imports nothing of JAX nor of the JAX package.
 """
 
 from __future__ import annotations
@@ -213,11 +182,9 @@ import time
 import numpy as np
 
 MB = 1 << 20
-MAIN_BYTES = 512 * MB
 CHECK_BYTES = 16 * MB
 CHECK_CAPC = 128  # capc of the 16 MB kernel checks (the learned floor)
 PREFIX_BYTES = 64 * MB
-TIMED_SCANS = 3
 DEVICE = "cuda"
 
 _T0 = time.perf_counter()
@@ -233,49 +200,16 @@ def log(msg: str) -> None:
 from hyperscan_tpu_torch.tools.benchdata import (  # noqa: E402
     NFA_ENGINES, PLANT_AT, PLANTS, gen_corpus, patterns, plant_many_class)
 from hyperscan_tpu_torch.tools.features import host_limit  # noqa: E402
-# phase 4b and the kernel bench's helpers, shared with the port's
-# per-kernel benches (tools_torch_bench_kernels.py)
+# the widths and kernel checks shared with the port's per-kernel benches
+# (tools_torch_bench_kernels.py)
 from hyperscan_tpu_torch.tools.kernel_bench import (  # noqa: E402
-    ENGINE_BLOCK, ENGINE_SETS, HBM_BYTES_PER_S, INT_OPS_PER_CLK,
-    SMEM_LOOKUPS_PER_CLK, check, chunk_inputs, compare_dfa, compare_nfa,
-    cuda_ms, engine_blocks, engine_db, engine_kernel_times, nfa_engine,
-    nvidia_smi, plant_engines)
+    ENGINE_BLOCK, ENGINE_BYTES, ENGINE_SETS, MAIN_BYTES, SHARD_BLOCK,
+    cell_err, check, chunk_inputs, compare_confirm, compare_dfa,
+    compare_filter, compare_nfa, engine_blocks, engine_db, nfa_engine,
+    nvidia_smi, plant_engines, rescan_err, words_route_err)
 
 
 # --- kernel vs plain comparisons ---------------------------------------------
-
-
-def compare_filter(torch, T, corpus_t, ft, capc, use_classes):
-    """Kernel A vs its plain version on the same inputs. Returns (kernel
-    outputs, max abs error over counts and valid positions)."""
-    pos_k, cnt_k = T.filter_compact(corpus_t, ft, capc,
-                                    use_classes=use_classes)
-    pos_p, cnt_p = T.filter_compact_plain(corpus_t, ft, capc,
-                                          use_classes=use_classes)
-    torch.cuda.synchronize()
-    valid = (torch.arange(capc, device=corpus_t.device)[None, :]
-             < cnt_p.clamp(max=capc)[:, None])
-    err = max(int((cnt_k - cnt_p).abs().max()),
-              int((pos_k[valid] - pos_p[valid]).abs().max())
-              if bool(valid.any()) else 0)
-    check(err == 0, f"kernel A (classes={use_classes}) != plain version")
-    return (pos_k, cnt_k), err
-
-
-def compare_confirm(torch, T, corpus_t, pos, ct, cap2):
-    """Kernel B vs its plain version: the same exact total and the same
-    pair set. Returns (kernel outputs, max abs error)."""
-    pairs_k, tot_k = T.hash_confirm(corpus_t, pos, ct, cap2)
-    pairs_p, tot_p = T.hash_confirm_plain(corpus_t, pos, ct, cap2)
-    torch.cuda.synchronize()
-    check(int(tot_k) == int(tot_p), "kernel B total != plain version")
-    check(int(tot_p) <= cap2, "cap2 below the hash-matched total")
-    k = min(int(tot_p), cap2)
-    a = torch.sort((pairs_k[:k, 1].long() << 20) | pairs_k[:k, 0]).values
-    b = torch.sort((pairs_p[:k, 1].long() << 20) | pairs_p[:k, 0]).values
-    err = int((a - b).abs().max()) if k else 0
-    check(err == 0, "kernel B pairs != plain version")
-    return (pairs_k, tot_k), err
 
 
 # kernel B's edge cases: literals whose tails end inside the first 8 bytes
@@ -414,7 +348,6 @@ def kernel_checks(torch, T, dbs):
 
 # --- the engine path: the general engines (DFA and bit-NFA) ------------------
 
-ENGINE_BYTES = 256 * MB
 ENGINE_HOST_BYTES = 32 * MB
 # a larger bounded DFA (S = 3,072, C = 4: S x C = 12,288), past the row
 # mode's shared-table limit and inside the chunk scan's, so kernel C's
@@ -436,7 +369,6 @@ def engine_dbs(ht):
 
     out = {}
     for route in ENGINE_SETS:
-        t0 = time.perf_counter()
         dev = engine_db(route)
         host = engine_db(route, host_scan_limit=2 * ENGINE_HOST_BYTES)
         (eng,) = dev.engines
@@ -458,8 +390,7 @@ def engine_dbs(ht):
                  f"P={eng.num_positions} depth {eng.max_depth}"
                  + (f", spec_dfa S={eng.spec_dfa.trans.shape[0]}"
                     if eng.spec_dfa is not None else ""))
-        log(f"engine route {route}: {shape}, compiled in "
-            f"{time.perf_counter() - t0:.2f} s")
+        log(f"engine route {route}: {shape}")
         out[route] = (dev, host)
     return out
 
@@ -541,24 +472,66 @@ def engine_kernel_checks(torch, edbs):
 
 def engine_path(ht, edbs, corpus) -> dict:
     """Phase 3b: every engine route through scan_batch on the card, over
-    256 MiB as one block and as 16,384 blocks: one warm scan, then
-    TIMED_SCANS timed ones (the corpus upload inside the timed loop);
-    each equals the warm scan."""
+    256 MiB as one block and as 16,384 blocks, twice: the repeat equals
+    the first scan. Returns each (route, shape)'s match count."""
     out = {}
     for route, (db, _host) in edbs.items():
         for shape in ("one_block", "blocks_16k"):
             blocks = engine_blocks(corpus, shape)
-            t0 = time.perf_counter()
-            warm = ht.scan_batch(db, blocks, device=DEVICE)
-            warm_s = time.perf_counter() - t0
-            times = []
-            for _ in range(TIMED_SCANS):
-                t0 = time.perf_counter()
-                again = ht.scan_batch(db, blocks, device=DEVICE)
-                times.append(time.perf_counter() - t0)
-                check(again == warm, f"{route} {shape}: repeat differs")
-            out[(route, shape)] = (sum(map(len, warm)), warm_s, times)
+            first = ht.scan_batch(db, blocks, device=DEVICE)
+            again = ht.scan_batch(db, blocks, device=DEVICE)
+            check(again == first, f"{route} {shape}: repeat differs")
+            out[(route, shape)] = sum(map(len, first))
     return out
+
+
+def engine_path_kernel_checks(torch, edbs, corpus) -> tuple:
+    """Phase 3b's kernels at the engine path's shapes: kernel C (each DFA
+    route, from its start state; the speculative routes with H = 0) and
+    kernel D (the bench engine and NFA_ENGINES, over `corpus` with the
+    many-class plant) over `corpus` as one block and as blocks of
+    ENGINE_BLOCK bytes, each against its plain version there (exact,
+    also past a cap below the total; kernel C with its tables in shared
+    and in global memory). Returns the max abs errors of C and D."""
+    from hyperscan_tpu_torch.ops import dfa_kernel as DK
+    from hyperscan_tpu_torch.ops import nfa_kernel as NK
+
+    err_c = err_d = 0
+    corpus_t = torch.from_numpy(corpus).to(DEVICE)
+    pc_t = torch.from_numpy(plant_many_class(corpus, 1000, 65_537)).to(
+        DEVICE)
+    for shape in ("one_block", "blocks_16k"):
+        lens = [len(b) for b in engine_blocks(corpus, shape)]
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        for route, (db, _host) in edbs.items():
+            eng = db.engines[0]
+            if route == "acyclic_nfa":
+                bs, be, ba, _ne = NK.block_bounds(
+                    starts, lens, np.ones(len(lens), bool), DEVICE)
+                cases = [("the bench engine", corpus_t, eng)]
+                cases += [(name, pc_t, nfa_engine(name))
+                          for name in NFA_ENGINES]
+                for name, c_t, e in cases:
+                    (_r, tot, _e), err = compare_nfa(
+                        torch, NK, c_t, NK.device_plan(e, DEVICE), bs, be,
+                        ba)
+                    err_d = max(err_d, err)
+                    log(f"engine path kernel D, {name}, {shape}: "
+                        f"{int(tot)} records: exact")
+                continue
+            d = eng.spec_dfa if route == "cyclic_nfa" else eng
+            H, CS = ((0, DK.SPEC_CS) if route != "bounded_dfa"
+                     else DK.chunk_shape(d))
+            c_t, tabs, meta, _p, _s, _l = chunk_inputs(
+                torch, d, corpus, lens, H, CS,
+                np.full(len(lens), d.start_state))
+            (_r, tot, _f), err = compare_dfa(torch, DK, c_t, tabs, meta, H)
+            err_c = max(err_c, err)
+            log(f"engine path kernel C, {route}, {shape}: {meta.shape[0]} "
+                f"chunks, {int(tot)} records, shared and global tables: "
+                "exact")
+            del c_t
+    return err_c, err_d
 
 
 def engine_host_differential(ht, edbs, corpus) -> dict:
@@ -579,65 +552,16 @@ def engine_host_differential(ht, edbs, corpus) -> dict:
     return out
 
 
-def engine_breakdown(torch, db, blocks) -> dict:
-    """Seconds of each stage of one engine scan, the stages of
-    scan_batch done one by one with a synchronize after each; the
-    engine stage holds the kernel, the record fetch and sort, the
-    speculative host chain and the record expansion."""
-    from hyperscan_tpu_torch.ops.teddy import corpus_tensor, flatten_blocks
-    from hyperscan_tpu_torch.runtime import scan as S
-
-    out = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        out[name] = now - t
-        t = now
-
-    blocks = [bytes(b) for b in blocks]
-    lap("bytes_copy")
-    corpus, starts, lens = flatten_blocks(blocks)
-    lap("concatenate")
-    corpus_t = corpus_tensor(corpus, DEVICE)
-    lap("upload")
-    sinks = [S.RecordSink() for _ in blocks]
-    S._device_engine_scan(db, blocks, corpus, corpus_t, starts, lens,
-                          1 << 14, {}, sinks)
-    lap("engine_scan")
-    recs = [s.materialize(len(b), db.som_eids())
-            for s, b in zip(sinks, blocks)]
-    lap("materialize")
-    for r, b in zip(recs, blocks):
-        S.finalize_reports(db, r, end_offset=len(b))
-    lap("finalize_reports")
-    return out
-
-
 # --- the literal families: kernels 5, 6, 4 and 3 ---------------------------
 
 FLOOD_BYTES = 4 * MB  # the flood database's corpus (every byte a candidate)
 FLOOD_MAIN_BYTES = MB // 4  # its scan on the main path (a match a byte)
-FORCED_TIMED = 2
-DENSE_PLANE = 0.05  # nonzero share of the extraction's dense plane
 
 
 def flood_db(ht):
     db = ht.compile_multi(["aaaa"], ids=[3])
     check(db.lit is not None and not db.engines, "flood db not literal")
     return db
-
-
-def cell_err(torch, pos_k, cnt_k, pos_p, cnt_p, cap) -> int:
-    """Max abs difference of per-cell counts and of the valid slots."""
-    valid = (torch.arange(cap, device=cnt_p.device)[None, :]
-             < cnt_p.clamp(max=cap)[:, None])
-    err = int((cnt_k - cnt_p).abs().max())
-    if bool(valid.any()):
-        err = max(err, int((pos_k[valid] - pos_p[valid]).abs().max()))
-    return err
 
 
 def family_kernel_checks(torch, T, db, fdb) -> dict:
@@ -724,14 +648,12 @@ def flood_main_path(ht, T, fdb) -> dict:
 
     corpus = np.full(FLOOD_MAIN_BYTES, ord("a"), np.uint8)
     before = dict(F.family_state(fdb.lit).dispatches)
-    t0 = time.perf_counter()
     out = ht.scan_batch(fdb, [corpus], device=DEVICE)[0]
-    took = time.perf_counter() - t0
     fams = ran_since(fdb.lit, before)
     check(len(out) == len(corpus) - 3, f"flood: {len(out)} matches")
     check(fams == ["compact", "dense"] and F.family_state(fdb.lit).dense,
           f"flood did not demote compact -> dense ({fams})")
-    return {"matches": len(out), "families": fams, "s": took}
+    return {"matches": len(out), "families": fams}
 
 
 def host_prefix(lit, corpus) -> set:
@@ -749,43 +671,54 @@ def host_prefix(lit, corpus) -> set:
     return set(zip(fh.tolist(), ph.tolist()))
 
 
+def main_kernel_checks(torch, T, lit, corpus, family: str, what: str):
+    """path_kernel_checks on a 512 MiB corpus of the main path, uploaded
+    again and dispatched under `family`, the one its last scan ran, at
+    the capacities the scans learned (a running max)."""
+    from hyperscan_tpu_torch.ops import teddy_families as F
+
+    force = F.family_state(lit).force
+    F.force_family(lit, family)
+    try:
+        h = F.confirm_start(T.corpus_tensor(corpus, DEVICE), lit, MAIN_BYTES)
+    finally:
+        F.force_family(lit, force)
+    check(h.family == family, f"{what}: dispatch family {h.family} != the "
+          f"last scan's {family}")
+    return path_kernel_checks(torch, T, lit, h, what, learned=True)
+
+
 def forced_families(torch, ht, T, db, runs, hosts) -> dict:
-    """Phase 3c: each family forced in turn on both 512 MiB corpora: the
-    64 MB prefix equals the host path, the match lists of the four
-    families are equal, end-to-end GB/s (FORCED_TIMED timed scans after a
-    warm one) and a stage breakdown; then the flood database, forced
-    compact, demotes to dense and finds every match."""
+    """Phase 3c: each family forced in turn on both 512 MiB corpora, each
+    scan twice: the repeat equals the first, the 64 MB prefix equals the
+    host path, the match lists of the four families are equal, and the
+    family's kernels equal their plain versions on the corpus
+    (main_kernel_checks); then the flood database, forced compact,
+    demotes to dense and finds every match. Returns the kernels' max abs
+    errors."""
     from hyperscan_tpu_torch.runtime.lit_runtime import verify_pairs
     from hyperscan_tpu_torch.ops import teddy_families as F
 
     lit = db.lit
-    out = {}
-    for kind, (corpus, ref_out, _w, _t) in runs.items():
+    errs = {}
+    for kind, (corpus, ref_out) in runs.items():
         for fam in F.FAMILIES:
             F.force_family(lit, fam)
             before = dict(F.family_state(lit).dispatches)
-            warm = ht.scan_batch(db, [corpus], device=DEVICE)[0]
+            first = ht.scan_batch(db, [corpus], device=DEVICE)[0]
             ran = ran_since(lit, before)
             check(ran[-1] == fam, f"{kind}: forced {fam} ran {ran}")
-            check(warm == ref_out, f"{kind}: forced {fam} match list "
-                  f"differs ({len(warm)} vs {len(ref_out)})")
-            times = []
-            for _ in range(FORCED_TIMED):
-                t0 = time.perf_counter()
-                again = ht.scan_batch(db, [corpus], device=DEVICE)[0]
-                times.append(time.perf_counter() - t0)
-                check(again == warm, f"{kind} {fam}: repeat differs")
+            check(first == ref_out, f"{kind}: forced {fam} match list "
+                  f"differs ({len(first)} vs {len(ref_out)})")
+            again = ht.scan_batch(db, [corpus], device=DEVICE)[0]
+            check(again == first, f"{kind} {fam}: repeat differs")
             dev_n, host_n = prefix_differential(torch, T, db, corpus,
                                                 hosts[kind])
-            stages = breakdown(torch, T, db, corpus)
-            gbs = MAIN_BYTES / (sum(times) / len(times)) / 1e9
-            out[(kind, fam)] = {"gb_s": gbs, "times": times,
-                                "prefix_pairs": dev_n, "stages": stages}
-            log(f"forced {fam} {kind}: {len(warm)} matches == default "
-                f"family's; 64 MB prefix device {dev_n} == host {host_n}; "
-                f"timed {[round(t, 4) for t in times]} s -> {gbs:.3f} GB/s; "
-                f"stages " + json.dumps({k: round(v, 6)
-                                         for k, v in stages.items()}))
+            log(f"forced {fam} {kind}: {len(first)} matches == default "
+                f"family's; 64 MB prefix device {dev_n} == host {host_n}")
+            for k, e in main_kernel_checks(torch, T, lit, corpus, fam,
+                                           f"forced {fam} {kind}").items():
+                errs[k] = max(errs.get(k, 0), e)
     F.force_family(lit, None)
     flit = ht.compile_multi(["aaaa"], ids=[3]).lit
     F.force_family(flit, "compact")
@@ -797,203 +730,13 @@ def forced_families(torch, ht, T, db, runs, hosts) -> dict:
           f"forced compact flood: {len(p)} matches, families {fams}")
     log(f"forced compact flood {FLOOD_BYTES} B: demoted to dense, "
         f"{len(p)} = n - 3 verified matches")
-    return out
-
-
-def lit_bound(clock_hz):
-    """The bound of a literal-path kernel on this card: the larger of its
-    bytes at HBM_BYTES_PER_S and of its shared-memory lookups and integer
-    operations, the two pipes side by side."""
-    def bound(n_bytes, lookups, int_ops=0):
-        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_o = max(lookups / (SMEM_LOOKUPS_PER_CLK * clock_hz),
-                  int_ops / (INT_OPS_PER_CLK * clock_hz)) * 1e3
-        return {"bound_ms": max(t_b, t_o),
-                "bound_by": "operations" if t_o > t_b else "bytes"}
-    return bound
-
-
-def rescan_times(torch, T, G, corpus_t, ft, flags, kc, capc, bound):
-    """Kernel 6 at one corpus's gate flags and row counts `kc`: its error
-    against the plain version (with the row counts, as the gated family
-    calls it, and without), and its ms with and without the counts,
-    plain ms and bound. The bound's bytes are what the call with the
-    counts must move: the counts, the flags of the cells with a flagged
-    row, those rows, and each cell's count and positions below capc; its
-    operations the M x W table words of each byte of a flagged row."""
-    pp, cp = T.filter_compact_plain(corpus_t, ft, capc, use_classes=True,
-                                    row_flags=flags)
-    err = 0
-    for counts in (kc, None):
-        pk, ck = G.rescan_rows(corpus_t, ft, flags, capc, row_counts=counts)
-        err = max(err, cell_err(torch, pk, ck, pp, cp, capc))
-    del pk, ck, pp
-    n_cells = kc.numel()
-    k_rows = int(kc.sum())
-    moved = (2 * n_cells * 4 + int((kc > 0).sum()) * (T.CELL // T.ROW)
-             + k_rows * T.ROW + int(cp.clamp(max=capc).sum()) * 4)
-    return err, dict(
-        ms=cuda_ms(torch, lambda: G.rescan_rows(corpus_t, ft, flags, capc,
-                                                row_counts=kc), 10),
-        ms_without_counts=cuda_ms(torch, lambda: G.rescan_rows(
-            corpus_t, ft, flags, capc), 10),
-        plain_ms=cuda_ms(torch, lambda: T.filter_compact_plain(
-            corpus_t, ft, capc, use_classes=True, row_flags=flags), 1),
-        library_ms=None, capc=capc, rows=k_rows,
-        candidates=int(cp.sum()), candidates_max_cell=int(cp.max()),
-        **bound(moved, k_rows * T.ROW * ft.M * ft.W))
-
-
-def family_kernel_times(torch, T, db, corpus, clock_hz, dense) -> dict:
-    """Phase 4c: kernels 5, 6, 4 and 3 at 512 MiB, the main path's shapes
-    (the rescan at the learned gated capc, with the gate's row counts):
-    each held against its plain version on the same inputs, exact (the
-    errors under "err"), then CUDA-event ms, bound, plain-version ms and,
-    for the extraction, torch.nonzero's ms; with `dense`, the extraction
-    over a plane with DENSE_PLANE of its bytes nonzero too."""
-    from hyperscan_tpu_torch.ops import extract as X
-    from hyperscan_tpu_torch.ops import teddy_families as F
-    from hyperscan_tpu_torch.ops import teddy_gate as G
-    from hyperscan_tpu_torch.ops import teddy_kconfirm as K
-
-    lit = db.lit
-    corpus_t = T.corpus_tensor(corpus, DEVICE)
-    ft, _ct = T.device_tables(lit, DEVICE)
-    gt = G.device_gate_table(lit, DEVICE)
-    kt = K.confirm_planes(lit, DEVICE)
-    n = corpus_t.numel()
-    n_cells = T._n_cells(n)
-    M, W = ft.M, ft.W
-    bound = lit_bound(clock_hz)
-    out, err = {}, {}
-    flags, kc = G.gate_rows(corpus_t, gt)
-    fp, kp = G.gate_rows_plain(corpus_t, gt)
-    err["gate"] = max(int((flags.int() - fp.int()).abs().max()),
-                      int((kc - kp).abs().max()))
-    k_rows = int(kc.sum())
-    out["gate"] = dict(
-        ms=cuda_ms(torch, lambda: G.gate_rows(corpus_t, gt), 10),
-        plain_ms=cuda_ms(torch, lambda: G.gate_rows_plain(corpus_t, gt), 1),
-        library_ms=None, rows=k_rows,
-        **bound(n + n_cells * (T.CELL // T.ROW + 4), n * M))
-    capc = F._caps_for(lit, 1 << 14, "gated")[1]
-    err["rescan"], out["rescan"] = rescan_times(torch, T, G, corpus_t, ft,
-                                                flags, kc, capc, bound)
-    check(out["rescan"]["candidates_max_cell"] <= capc,
-          "learned gated capc below the hottest cell")
-    ok_ = K.filter_kconfirm(corpus_t, ft, kt, use_classes=True)
-    op_ = K.filter_kconfirm_plain(corpus_t, ft, kt, use_classes=True)
-    err["kconfirm"] = max(
-        int((ok_[0] - op_[0]).abs().max()),
-        cell_err(torch, ok_[2], ok_[1], op_[2], op_[1], K.CAPC2),
-        cell_err(torch, ok_[3], ok_[1], op_[3], op_[1], K.CAPC2))
-    n_cand, G_ = int(op_[0].sum()), len(kt.groups)
-    out["kconfirm"] = dict(
-        ms=cuda_ms(torch, lambda: K.filter_kconfirm(
-            corpus_t, ft, kt, use_classes=True), 10),
-        plain_ms=cuda_ms(torch, lambda: K.filter_kconfirm_plain(
-            corpus_t, ft, kt, use_classes=True), 1),
-        library_ms=None, candidates=n_cand, matches=int(op_[1].sum()),
-        groups=G_,
-        # per candidate and group: one 256-byte row read, ~20 hash
-        # operations and 128 signature compares
-        **bound(n + n_cand * G_ * 256 + n_cells * (2 + 2 * K.CAPC2) * 4,
-                n * M * W, n_cand * G_ * (20 + 128)))
-    del ok_, op_
-    plane = T.filter_plane(corpus_t, ft, use_classes=True)
-    plane_p = T.filter_plane_plain(corpus_t, ft, use_classes=True)
-    err["plane"] = int((plane != plane_p).sum())
-    del plane_p
-    total = int(plane.sum())
-    out["plane"] = dict(
-        ms=cuda_ms(torch, lambda: T.filter_plane(corpus_t, ft,
-                                                 use_classes=True), 10),
-        plain_ms=cuda_ms(torch, lambda: T.filter_plane_plain(
-            corpus_t, ft, use_classes=True), 1),
-        library_ms=None, candidates=total,
-        **bound(n + plane.numel(), n * M * W))
-
-    def extract_times(plane, n_valid):
-        # the output: cap1 positions (-1 past the total) and meta
-        total = int(plane.sum())
-        cap1 = T._p2(max(total, 1))
-        mk, qk = X.plane_extract(plane, n_valid, cap1)
-        mp, qp = X.plane_extract_plain(plane, n_valid, cap1)
-        e = max(int((mk - mp).abs().max()), int((qk - qp).abs().max()))
-        return e, dict(
-            ms=cuda_ms(torch, lambda: X.plane_extract(plane, n_valid, cap1),
-                       10),
-            plain_ms=cuda_ms(torch, lambda: X.plane_extract_plain(
-                plane, n_valid, cap1), 1),
-            library_ms=cuda_ms(torch, lambda: torch.nonzero(plane), 5),
-            cap1=cap1, candidates=total,
-            **bound(plane.numel() + cap1 * 4 + 16, 0))
-
-    err["extract"], out["extract"] = extract_times(plane, n)
-    if dense:
-        # a plane with DENSE_PLANE of its bytes nonzero, made on the card
-        # from a seed: where the dense family is chosen, candidates are
-        # dense
-        g = torch.Generator(device=DEVICE).manual_seed(9)
-        plane = (torch.rand(plane.numel(), generator=g, device=DEVICE)
-                 < DENSE_PLANE).to(torch.uint8)
-        e, out["extract_dense"] = extract_times(plane, n)
-        err["extract"] = max(err["extract"], e)
-    for k, e in err.items():
-        check(e == 0, f"kernel {k} at 512 MiB != plain version")
-    out["err"] = err
-    return out
+    return errs
 
 
 # --- the multi-device path: kernel 7, the batch DFA scan, the mesh ---------
 
-SHARD_BLOCK = 512 * 1024  # sharded scan_batch: 1,024 blocks of 512 KiB
 SHARDS_ONE_CARD = 4  # the hand-built mesh: four shards on card 0
 DFA_CHECK_ROWS = 1024  # dfa_scan_batch check: 1,024 rows of 16 KiB
-
-
-def words_err(cnt_k, pos_k, words_k, cnt_p, pos_p, words_p) -> int:
-    """Max abs difference of kernel 7's per-cell counts, positions and
-    words from its plain version's (the int32 words compared as values:
-    zero exactly when they are bitwise equal)."""
-    total = pos_p.numel()
-    err = int((cnt_k.long() - cnt_p.long()).abs().max()) if \
-        cnt_p.numel() else 0
-    err = max(err, abs(int(cnt_k.long().sum()) - total))
-    if total:
-        err = max(err, int((pos_k[:total] - pos_p).abs().max()),
-                  int((words_k[:, :total].long() - words_p.long())
-                      .abs().max()))
-    return err
-
-
-def seg_err(TW, seg_k, pos_p, n: int, start: int) -> int:
-    """Max abs difference of kernel 7's segment counts from the plain
-    version's (its positions binned by segment)."""
-    seg_p = TW.segment_counts(pos_p, n, start)
-    if seg_k.shape != seg_p.shape:
-        return 1 << 30
-    return int((seg_k.long() - seg_p.long()).abs().max()) if \
-        seg_p.numel() else 0
-
-
-def words_route_err(torch, TW, corpus_t, masks, start, plain, classes):
-    """Kernel 7 on one table route (count mode with and without segment
-    counts, list mode from the segment counts) against its plain version
-    `plain` = (counts, positions, words): the max abs error."""
-    cnt_p, pos_p, words_p = plain
-    n = corpus_t.numel()
-    cnt_k, seg_k = TW.filter_words_count(corpus_t, masks, start,
-                                         segments=True, use_classes=classes)
-    cnt_only = TW.filter_words_count(corpus_t, masks, start,
-                                     use_classes=classes)
-    pos_k, words_k = TW.filter_words_list(corpus_t, masks, seg_k,
-                                          max(1, pos_p.numel()), start,
-                                          use_classes=classes)
-    torch.cuda.synchronize()
-    return max(words_err(cnt_k, pos_k, words_k, cnt_p, pos_p, words_p),
-               words_err(cnt_only, pos_k, words_k, cnt_p, pos_p, words_p),
-               seg_err(TW, seg_k, pos_p, n, start))
 
 
 def words_check(torch, T, TW, corpus_t, ft, masks, start=0) -> tuple:
@@ -1094,7 +837,7 @@ def sharded_path(torch, ht, T, db, runs, edbs, ecorpus) -> dict:
     """Phase 3d, the slice at full width, every call through its entry
     point: teddy_scan over both 512 MiB corpora; sharded_teddy_count and
     scan_batch(mesh=) over them (1,024 blocks of 512 KiB) on both meshes,
-    one warm scan and FORCED_TIMED timed ones; sharded_scan_counts and
+    twice (the repeat equals the first); sharded_scan_counts and
     sharded_scan_matches with the bounded DFA over 16,384 x 16 KiB on
     both meshes. The launch counts are read right after; the checks
     against the unsharded scans and kernel A come after that."""
@@ -1108,124 +851,70 @@ def sharded_path(torch, ht, T, db, runs, edbs, ecorpus) -> dict:
     before = dict(F.family_state(db.lit).dispatches)
     T.reset_launches()
     lit_out, dfa_out = {}, {}
-    for kind, (corpus, _o, _w, _t) in runs.items():
-        t0 = time.perf_counter()
+    for kind, (corpus, _o) in runs.items():
         total, pos, _words = TW.teddy_scan(corpus, db.lit.masks,
                                            hint_obj=db.lit, device=DEVICE)
-        r = {"teddy_scan_s": time.perf_counter() - t0, "total": total,
-             "pos": pos, "counts": {}, "lists": {}}
+        r = {"total": total, "pos": pos, "counts": {}, "lists": {}}
         blocks = [corpus[i:i + SHARD_BLOCK]
                   for i in range(0, len(corpus), SHARD_BLOCK)]
         for name, m in meshes.items():
-            t0 = time.perf_counter()
-            r["counts"][name] = (P.sharded_teddy_count(corpus, db.lit.masks,
-                                                       m),
-                                 time.perf_counter() - t0)
-            warm = ht.scan_batch(db, blocks, mesh=m)
-            times = []
-            for _ in range(FORCED_TIMED):
-                t0 = time.perf_counter()
-                again = ht.scan_batch(db, blocks, mesh=m)
-                times.append(time.perf_counter() - t0)
-                check(again == warm, f"{kind} {name}: repeat differs")
-            r["lists"][name] = (warm, times)
+            r["counts"][name] = P.sharded_teddy_count(corpus, db.lit.masks,
+                                                      m)
+            first = ht.scan_batch(db, blocks, mesh=m)
+            again = ht.scan_batch(db, blocks, mesh=m)
+            check(again == first, f"{kind} {name}: repeat differs")
+            r["lists"][name] = first
         lit_out[kind] = (r, blocks)
     for name, m in meshes.items():
         data, lengths = P.pad_batch_for_mesh(eblocks, m, ENGINE_BLOCK)
-        t0 = time.perf_counter()
         cnt = P.sharded_scan_counts(eng, data, lengths, m)
-        t1 = time.perf_counter()
         mt = P.sharded_scan_matches(eng, data, lengths, m,
                                     capacity=T._p2(max(cnt, 1)))
-        torch.cuda.synchronize()
-        dfa_out[name] = (cnt, [x.cpu() for x in mt], t1 - t0,
-                         time.perf_counter() - t1)
+        dfa_out[name] = (cnt, [x.cpu() for x in mt])
     launches = dict(T.LAUNCHES)
     return {"lit": lit_out, "dfa": dfa_out, "launches": launches,
             "families": ran_since(db.lit, before), "meshes": meshes,
             "data": (data, lengths)}
 
 
-def sharded_breakdown(torch, db, blocks, mesh) -> dict:
-    """Seconds of each stage of one scan_batch(mesh=) of a literal
-    database, the stages done one by one with a synchronize after each
-    (the shard stage holds the per-shard uploads, the chosen family's
-    kernels on each shard and the one fetch)."""
-    from hyperscan_tpu_torch.ops.teddy import flatten_blocks
-    from hyperscan_tpu_torch.parallel.sharded import sharded_literal_confirm
-    from hyperscan_tpu_torch.runtime.lit_runtime import (
-        finish_confirmed, verify_pairs)
-    from hyperscan_tpu_torch.runtime.scan import (
-        RecordSink, finalize_reports)
-
-    out = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        out[name] = now - t
-        t = now
-
-    blocks = [bytes(b) for b in blocks]
-    lap("bytes_copy")
-    flat = flatten_blocks(blocks)
-    lap("concatenate")
-    shards = sharded_literal_confirm(db.lit, blocks, mesh, 4096, flat=flat)
-    lap("shards_upload_device_fetch")
-    sinks = [RecordSink() for _ in blocks]
-    for (g, f, p, corpus_d, starts_d, ends_d) in shards:
-        if not len(g):
-            continue
-        f, p = verify_pairs(db.lit, corpus_d, starts_d, f, p)
-        for (bi, e, to, frm) in finish_confirmed(db, corpus_d, starts_d,
-                                                 ends_d, f, p):
-            sinks[g[bi]].add(e, to, frm)
-    lap("verify_and_windows")
-    for s_, b in zip(sinks, blocks):
-        finalize_reports(db, s_.materialize(len(b), db.som_eids()),
-                         end_offset=len(b))
-    lap("reports")
-    return out
-
-
-def sharded_checks(torch, ht, T, db, edbs, sh) -> None:
+def sharded_checks(torch, ht, T, db, edbs, sh) -> dict:
     """Phase 3d's checks: teddy_scan's total equals kernel A's candidate
-    count and its positions kernel A's; every sharded count equals it;
-    every sharded match list equals the unsharded scan_batch; the
-    sharded DFA totals equal the count, and the gathered matches equal
-    the unsharded dfa_scan_batch + extract_matches."""
+    count and its positions kernel A's; kernel 7 equals its plain version
+    and kernel A over each corpus (words_check); every sharded count
+    equals the total; every sharded match list equals the unsharded
+    scan_batch; dfa_scan_batch over the padded rows equals its plain
+    version, in one row-mode launch; the sharded DFA totals equal the
+    count, and the gathered matches equal the unsharded dfa_scan_batch +
+    extract_matches. Returns the max abs errors of kernel 7 ("words")
+    and of the row mode ("dfa_batch")."""
     from hyperscan_tpu_torch.ops import dfa as D
     from hyperscan_tpu_torch.ops import dfa_kernel as DK
     from hyperscan_tpu_torch.ops import match as MT
+    from hyperscan_tpu_torch.ops import teddy_words as TW
 
     ft, _ct = T.device_tables(db.lit, DEVICE)
+    masks = T.mask_tables(db.lit.masks, DEVICE)
+    errs = {"words": 0}
     for kind, (r, blocks) in sh["lit"].items():
         corpus_t = T.corpus_tensor(np.concatenate(blocks), DEVICE)
         plane = T.filter_plane(corpus_t, ft, use_classes=True)
         cand = torch.nonzero(plane).squeeze(1).int().cpu().numpy()
-        del plane, corpus_t
+        del plane
+        errs["words"] = max(errs["words"], words_check(
+            torch, T, TW, corpus_t, ft, masks)[0])
+        del corpus_t
         check(r["total"] == len(cand) and np.array_equal(r["pos"], cand),
               f"{kind}: teddy_scan total {r['total']} != kernel A's "
               f"{len(cand)} candidates")
-        for name, (cnt, _s) in r["counts"].items():
+        for name, cnt in r["counts"].items():
             check(cnt == r["total"], f"{kind} {name}: sharded_teddy_count "
                   f"{cnt} != teddy_scan {r['total']}")
         single = r["single"] = ht.scan_batch(db, blocks, device=DEVICE)
-        for name, (lists, _t) in r["lists"].items():
+        for name, lists in r["lists"].items():
             check(lists == single, f"{kind} {name}: sharded scan_batch != "
                   "unsharded")
-        # the same blocks unsharded, timed in the same call, and the
-        # sharded scan's stages
-        r["unsharded_times"] = []
-        for _ in range(FORCED_TIMED):
-            t0 = time.perf_counter()
-            again = ht.scan_batch(db, blocks, device=DEVICE)
-            r["unsharded_times"].append(time.perf_counter() - t0)
-            check(again == single, f"{kind}: unsharded repeat differs")
-        r["stages"] = {name: sharded_breakdown(torch, db, blocks, m)
-                       for name, m in sh["meshes"].items()}
+        again = ht.scan_batch(db, blocks, device=DEVICE)
+        check(again == single, f"{kind}: unsharded repeat differs")
         log(f"sharded {kind}: teddy_scan total {r['total']} == kernel A "
             f"candidates == sharded_teddy_count on {list(r['counts'])}; "
             f"scan_batch(mesh=) == unsharded on every mesh "
@@ -1234,14 +923,23 @@ def sharded_checks(torch, ht, T, db, edbs, sh) -> None:
     tabs = DK.device_tables(eng, DEVICE)
     data, lengths = sh["data"]
     d_t = torch.from_numpy(data).to(DEVICE)
-    accepts, finals = D.dfa_scan_batch(
-        tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
-        int(eng.start_state), d_t, torch.from_numpy(lengths).to(DEVICE))
+    args = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
+            int(eng.start_state), d_t, torch.from_numpy(lengths).to(DEVICE))
+    before = T.LAUNCHES["dfa_scan_rows"]
+    accepts, finals = D.dfa_scan_batch(*args)
+    check(T.LAUNCHES["dfa_scan_rows"] - before == 1, "dfa_scan_batch made "
+          "more than one row-mode launch in a call")
+    a_p, f_p = D.dfa_scan_batch_plain(*args)
+    errs["dfa_batch"] = max(int((accepts - a_p).abs().max()),
+                            int((finals - f_p).abs().max()))
+    check(errs["dfa_batch"] == 0, f"dfa_scan_batch over {data.shape[0]} x "
+          f"{data.shape[1]} rows != plain version")
+    del a_p, f_p
     want_n = int(MT.count_matches(accepts))
     tot, sid, blk, tos = (x.cpu() for x in MT.extract_matches(
         accepts, T._p2(max(want_n, 1))))
     del accepts
-    for name, (cnt, (tot_d, sid_d, blk_d, tos_d, eod_d), _tc, _tm) in \
+    for name, (cnt, (tot_d, sid_d, blk_d, tos_d, eod_d)) in \
             sh["dfa"].items():
         n_sh = tot_d.shape[0]
         rows = data.shape[0] // n_sh
@@ -1263,169 +961,10 @@ def sharded_checks(torch, ht, T, db, edbs, sh) -> None:
         log(f"sharded DFA {name}: {cnt} matches over {data.shape[0]} "
             f"blocks on {n_sh} shards == unsharded dfa_scan_batch + "
             "extract_matches")
-
-
-def multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh,
-                       clock_hz) -> dict:
-    """Phase 4d: kernel 7 count and list mode over each 512 MiB corpus
-    (row 8 is count mode, once per shard: also timed over the 4-shard
-    segments; count mode also with segment counts and on the byte tables
-    forced; count + cumsum + list, teddy_scan's device work), and
-    dfa_scan_batch (kernel C's row mode) over 16,384 x 16 KiB and over
-    its first 4,096 rows (one shard of four), each beside its bound and
-    its plain version (CUDA events). At these shapes every kernel is
-    also held against its plain version (exact): kernel 7's per-cell and
-    per-segment counts, positions and words over each corpus on both
-    table routes; count mode over each of the four segments, on both
-    routes, against the plain version over the same segment and against
-    the whole corpus's plain positions inside it; the batch scan's accept
-    plane and finals. The errors are returned under "err"."""
-    from hyperscan_tpu_torch import parallel as P
-    from hyperscan_tpu_torch.ops import dfa as D
-    from hyperscan_tpu_torch.ops import dfa_kernel as DK
-    from hyperscan_tpu_torch.ops import teddy_words as TW
-
-    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
-    masks = T.mask_tables(db.lit.masks, DEVICE)
-    M, W = masks.M, masks.W
-
-    def bound(n_bytes, lookups):
-        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_o = lookups / lookups_per_s * 1e3
-        return {"bound_ms": max(t_b, t_o),
-                "bound_by": "operations" if t_o > t_b else "bytes"}
-
-    out = {"err": {"words": 0, "dfa_batch": 0}}
-    check(masks.cmasks is not None, "the 10k ruleset's masks do not "
-          "compress to class tables")
-    # the class tables and their class map; the bounds count the M*W
-    # table words a position needs (the byte tables give the same words),
-    # and "lookups_read" adds the class route's remap of each byte
-    tab_bytes = M * W * 128 * 4 + 256
-    for kind, (corpus, _o, _w, _t) in runs.items():
-        corpus_t = T.corpus_tensor(corpus, DEVICE)
-        n = corpus_t.numel()
-        n_cells = T._n_cells(n)
-        n_segs = TW.n_segments(n)
-        plain = TW.filter_words_plain(corpus_t, masks)
-        _cnt_p, pos_p, _words_p = plain
-        total = pos_p.numel()
-        # both table routes: cell and segment counts, the list
-        err = max(words_route_err(torch, TW, corpus_t, masks, 0, plain,
-                                  classes) for classes in (True, False))
-        plain_ms = cuda_ms(torch, lambda: TW.filter_words_plain(
-            corpus_t, masks), 1)
-        cnt, segs = TW.filter_words_count(corpus_t, masks, segments=True)
-        visited = int((segs != 0).sum())
-        # row 8's shape: count mode over each shard's segment of four,
-        # with its look-back bytes, on both routes
-        parts = []
-        for lo, hi in P.sharded.segments(n, SHARDS_ONE_CARD):
-            back = min(lo, P.sharded.LOOKBACK)
-            part = corpus_t[lo - back:hi].clone()
-            parts.append((part, back))
-            seg_p = TW.filter_words_plain(part, masks, back)[0]
-            inside = int(((pos_p >= lo) & (pos_p < hi)).sum())
-            for classes in (True, False):
-                seg_k = TW.filter_words_count(part, masks, back,
-                                              use_classes=classes)
-                err = max(err,
-                          int((seg_k.long() - seg_p.long()).abs().max()),
-                          abs(int(seg_k.long().sum()) - inside))
-        check(err == 0, f"{kind}: kernel 7 at {n} bytes (count, segment "
-              f"counts, list, class and byte tables, {SHARDS_ONE_CARD} "
-              "shard segments) != plain version")
-        log(f"kernel check 7 {kind} at {n} bytes: {total} candidates in "
-            f"{visited} of {n_segs} segments; count, segment counts, list "
-            f"(class and byte tables) and {SHARDS_ONE_CARD} shard segments "
-            "== plain: exact")
-        out["err"]["words"] = max(out["err"]["words"], err)
-        del plain, pos_p, _words_p
-
-        def count_list():
-            _c, sg = TW.filter_words_count(corpus_t, masks, segments=True)
-            return TW.filter_words_list(corpus_t, masks, sg, max(1, total))
-
-        out[kind] = {
-            "candidates": total, "segments": n_segs,
-            "segments_visited": visited,
-            "count": dict(
-                ms=cuda_ms(torch, lambda: TW.filter_words_count(
-                    corpus_t, masks), 10),
-                ms_segments=cuda_ms(torch, lambda: TW.filter_words_count(
-                    corpus_t, masks, segments=True), 10),
-                ms_byte_tables=cuda_ms(torch, lambda: TW.filter_words_count(
-                    corpus_t, masks, use_classes=False), 10),
-                plain_ms=plain_ms, library_ms=None,
-                lookups_read=n * (M * W + 1),
-                **bound(n + n_cells * 4 + tab_bytes, n * M * W)),
-            "count_4_segments": dict(ms=cuda_ms(torch, lambda: [
-                TW.filter_words_count(p, masks, s) for p, s in parts], 10)),
-            # list mode's own work: the segment counts read, the visited
-            # segments' ranks and bytes read and filtered, the outputs
-            "list": dict(
-                ms=cuda_ms(torch, lambda: TW.filter_words_list(
-                    corpus_t, masks, segs, max(1, total)), 10),
-                plain_ms=plain_ms, library_ms=None,
-                lookups_read=visited * TW.SEG * (M * W + 1),
-                **bound(n_segs * 4 + visited * (8 + TW.SEG) + tab_bytes
-                        + total * (1 + W) * 4,
-                        visited * TW.SEG * M * W)),
-            # the standalone filter's total (teddy_scan's device work:
-            # count with segment counts, cumsum, list) against one
-            # filter pass and its outputs
-            "count_list": dict(
-                ms=cuda_ms(torch, count_list, 10),
-                **bound(n + tab_bytes + total * (1 + W) * 4, n * M * W)),
-        }
-        if total:
-            # the compaction's yardstick: torch.nonzero over the
-            # candidate plane
-            pos_k = TW.filter_words_list(corpus_t, masks, segs, total)[0]
-            cand = torch.zeros(n, dtype=torch.uint8, device=DEVICE)
-            cand[pos_k.long()] = 1
-            out[kind]["list"]["nonzero_ms"] = cuda_ms(
-                torch, lambda: torch.nonzero(cand), 5)
-            del cand, pos_k
-        del parts, corpus_t, cnt, segs
-    eng = edbs["bounded_dfa"][0].engines[0]
-    tabs = DK.device_tables(eng, DEVICE)
-    data, lengths = sh["data"]
-    d_t = torch.from_numpy(data).to(DEVICE)
-    l_t = torch.from_numpy(lengths).to(DEVICE)
-    args = (tabs.trans.view(tabs.S, tabs.C), tabs.b2c, tabs.accept,
-            int(eng.start_state), d_t, l_t)
-    n = d_t.numel()
-    a_k, f_k = D.dfa_scan_batch(*args)
-    a_p, f_p = D.dfa_scan_batch_plain(*args)
-    err = max(int((a_k - a_p).abs().max()), int((f_k - f_p).abs().max()))
-    check(err == 0, f"dfa_scan_batch over {data.shape[0]} x "
-          f"{data.shape[1]} rows != plain version")
-    log(f"kernel check dfa_scan_batch: {data.shape[0]} x {data.shape[1]} "
-        f"rows, {int((a_p != 0).sum())} accepts: exact")
-    out["err"]["dfa_batch"] = err
-    del a_k, f_k, a_p, f_p
-    before = T.LAUNCHES["dfa_scan_rows"]
-    D.dfa_scan_batch(*args)
-    per_call = T.LAUNCHES["dfa_scan_rows"] - before
-    check(per_call == 1, f"dfa_scan_batch made {per_call} row-mode "
-          "launches in one call")
-    out["dfa_batch"] = dict(
-        ms=cuda_ms(torch, lambda: D.dfa_scan_batch(*args), 5),
-        plain_ms=cuda_ms(torch, lambda: D.dfa_scan_batch_plain(*args), 1),
-        library_ms=None, launches_per_call=per_call,
-        # the bytes read, the int32 accept plane written; three lookups a
-        # byte (b2c, trans, accept)
-        **bound(n + 4 * n + tabs.nbytes + 8 * data.shape[0], 3 * n))
-    # one shard of four: 4,096 rows, where one row's serial chain of
-    # dependent lookups, not the bytes, is expected to set the time
-    rows = data.shape[0] // SHARDS_ONE_CARD
-    shard = (*args[:4], d_t[:rows], l_t[:rows])
-    n_sh = rows * data.shape[1]
-    out["dfa_batch_shard"] = dict(
-        rows=rows, ms=cuda_ms(torch, lambda: D.dfa_scan_batch(*shard), 5),
-        **bound(5 * n_sh + tabs.nbytes + 8 * rows, 3 * n_sh))
-    return out
+    log(f"kernel checks 3d: kernel 7 over both corpora == plain == kernel "
+        f"A; dfa_scan_batch over {data.shape[0]} x {data.shape[1]} rows == "
+        "plain, one launch: exact")
+    return errs
 
 
 # --- the multi-process mesh (3f): one process per card on torch.distributed --
@@ -1449,11 +988,11 @@ def mesh_worker(rank: int, port: int, folder: str, cap: int) -> int:
     """One of phase 3f's processes: joins the group
     (make_multihost_mesh, one shard a process), then runs the phase's
     work over the inputs in `folder` as a user would: scan_batch(mesh=)
-    over 1,024 x 512 KiB of each 512 MiB corpus (one warm, FORCED_TIMED
-    timed) and sharded_teddy_count over it, both on the whole corpus;
+    over 1,024 x 512 KiB of each 512 MiB corpus (twice: the repeat equals
+    the first) and sharded_teddy_count over it, both on the whole corpus;
     sharded_scan_counts and sharded_scan_matches (capacity `cap`) with
     the bounded DFA over this process's half of 16,384 x 16 KiB. Writes
-    its lists, the gathered DFA buffers and a JSON of times, families,
+    its lists, the gathered DFA buffers and a JSON of counts, families,
     launch counts, its card and the group's backend into `folder`."""
     import pathlib
 
@@ -1484,32 +1023,19 @@ def mesh_worker(rank: int, port: int, folder: str, cap: int) -> int:
     for kind, corpus in corpora.items():
         blocks = [corpus[i:i + SHARD_BLOCK]
                   for i in range(0, len(corpus), SHARD_BLOCK)]
-        t0 = time.perf_counter()
         cnt = P.sharded_teddy_count(corpus, db.lit.masks, mesh)
-        t1 = time.perf_counter()
-        warm = ht.scan_batch(db, blocks, mesh=mesh)
-        t2 = time.perf_counter()
-        times = []
-        for _ in range(FORCED_TIMED):
-            t0_ = time.perf_counter()
-            again = ht.scan_batch(db, blocks, mesh=mesh)
-            times.append(time.perf_counter() - t0_)
-            check(again == warm, f"3f process {rank} {kind}: repeat differs")
-        np.save(d / f"lists_{kind}_{rank}.npy", mesh_rows(warm))
-        out["lit"][kind] = {"count": cnt, "count_s": t1 - t0,
-                            "warm_s": t2 - t1, "times": times}
-    t0 = time.perf_counter()
+        first = ht.scan_batch(db, blocks, mesh=mesh)
+        again = ht.scan_batch(db, blocks, mesh=mesh)
+        check(again == first, f"3f process {rank} {kind}: repeat differs")
+        np.save(d / f"lists_{kind}_{rank}.npy", mesh_rows(first))
+        out["lit"][kind] = {"count": cnt}
     cnt = P.sharded_scan_counts(eng, data[mine], lengths[mine], mesh)
-    t1 = time.perf_counter()
     mt = P.sharded_scan_matches(eng, data[mine], lengths[mine], mesh,
                                 capacity=cap)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
     out["launches"] = dict(T.LAUNCHES)
     out["families"] = ran_since(db.lit, before)
     np.savez(d / f"dfa_{rank}.npz", *[x.cpu().numpy() for x in mt])
-    out["dfa"] = {"count": cnt, "rows": half, "count_s": t1 - t0,
-                  "matches_s": t2 - t1}
+    out["dfa"] = {"count": cnt, "rows": half}
     P.close_multihost_mesh()
     (d / f"worker_{rank}.json").write_text(json.dumps(out))
     return 0
@@ -1558,7 +1084,6 @@ def multiprocess_path(torch, ht, T, db, edb, corpora, ecorpus, singles
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, __file__, "--mesh-worker",
                                    str(r), str(port), folder, str(cap)])
                  for r in range(MESH_PROCESSES)]
@@ -1569,7 +1094,6 @@ def multiprocess_path(torch, ht, T, db, edb, corpora, ecorpus, singles
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        wall = time.perf_counter() - t0
         check(rcs == [0] * MESH_PROCESSES, f"3f: worker exit codes {rcs}")
         res = [json.loads((d / f"worker_{r}.json").read_text())
                for r in range(MESH_PROCESSES)]
@@ -1597,38 +1121,25 @@ def multiprocess_path(torch, ht, T, db, edb, corpora, ecorpus, singles
                                         for f in w["families"]),
                   f"3f process {r}: families {w['families']} did not launch "
                   "their filter kernels")
-    return {"workers": res, "wall_s": wall, "dfa_n": want_n,
-            "cards": cards}
+    return {"workers": res, "dfa_n": want_n, "cards": cards}
 
 
 def log_multiprocess(mp: dict, card: str) -> None:
     """Phase 3f's lines: the group, and each process's families, launch
-    counts and times."""
+    counts and counts."""
     w0 = mp["workers"][0]
     log(f"3f multi-process mesh: {MESH_PROCESSES} processes on "
         f"{w0['backend']}, {mp['cards']} visible card(s), process cards "
         f"{[w['card'] for w in mp['workers']]}; lists, counts and DFA "
-        f"buffers == single process; {mp['wall_s']:.1f} s wall (start-up "
-        f"included) [{card}]")
+        f"buffers == single process [{card}]")
     for w in mp["workers"]:
         r = w["rank"]
         log(f"3f process {r}: families {w['families']}; launches "
-            f"{ {k: v for k, v in w['launches'].items() if v} }")
-        for kind, t in w["lit"].items():
-            mean = sum(t["times"]) / len(t["times"])
-            log(f"3f process {r} {kind}: sharded_teddy_count {t['count']} in "
-                f"{t['count_s']:.3f} s; scan_batch(mesh=) over "
-                f"{MAIN_BYTES // SHARD_BLOCK} blocks: warm {t['warm_s']:.3f} "
-                f"s, timed scans {[round(x, 4) for x in t['times']]} s -> "
-                f"{MAIN_BYTES / mean / 1e9:.3f} GB/s end to end [{card}]")
-        t = w["dfa"]
-        nb = t["rows"] * ENGINE_BLOCK
-        log(f"3f process {r} DFA: {t['rows']} rows of its own, "
-            f"sharded_scan_counts {t['count']} in {t['count_s']:.3f} s, "
-            f"sharded_scan_matches in {t['matches_s']:.3f} s "
-            f"({nb / t['count_s'] / 1e9:.3f} / "
-            f"{nb / t['matches_s'] / 1e9:.3f} GB/s of its rows, upload "
-            f"included) [{card}]")
+            f"{ {k: v for k, v in w['launches'].items() if v} }; "
+            f"sharded_teddy_count "
+            f"{ {kind: t['count'] for kind, t in w['lit'].items()} }; "
+            f"DFA over its {w['dfa']['rows']} rows: {w['dfa']['count']} "
+            "matches")
 
 
 def mesh_only() -> int:
@@ -1685,7 +1196,7 @@ def mesh_only() -> int:
     return 0
 
 
-# --- kernel 4's stage modes (row 11) ------------------------------------------
+# --- kernel 4's stage modes (row 11) -----------------------------------------
 
 
 def stage_kernel_checks(torch, T, db) -> int:
@@ -1725,74 +1236,13 @@ def stage_kernel_checks(torch, T, db) -> int:
     return err
 
 
-def stage_probe_times(torch, T, db, corpus, clock_hz) -> dict:
-    """Phase 4e: the stage probe (tools/kconf_probe.stage_times) at 512 MiB
-    iid, its launch counts read right after; then stages 0-2 held against
-    their plain versions at that size (exact), their plain times, and
-    each variant's bound."""
-    from hyperscan_tpu_torch.ops import teddy_kconfirm as K
-    from hyperscan_tpu_torch.tools.kconf_probe import stage_times
-
-    T.reset_launches()
-    res = stage_times(db, corpus, 10, DEVICE)
-    res["launches"] = dict(T.LAUNCHES)
-    check(res["launches"]["teddy_kconfirm_stage"] > 0,
-          "the stage probe launched no stage mode")
-    ft, _ct = T.device_tables(db.lit, DEVICE)
-    kt = K.confirm_planes(db.lit, DEVICE)
-    uc = ft.cmasks is not None
-    corpus_t = T.corpus_tensor(corpus, DEVICE)
-    n = corpus_t.numel()
-    n_cells = T._n_cells(n)
-    lookups = n * ft.M * ft.W
-    cand, groups = res["candidates"], len(kt.groups)
-    lookups_per_s = SMEM_LOOKUPS_PER_CLK * clock_hz
-
-    def bound(n_bytes, int_ops=0):
-        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-        # the shared-memory and integer pipes run side by side
-        t_o = max(lookups / lookups_per_s,
-                  int_ops / (INT_OPS_PER_CLK * clock_hz)) * 1e3
-        return {"bound_ms": max(t_b, t_o),
-                "bound_by": "operations" if t_o > t_b else "bytes"}
-
-    # per candidate and group: ~20 hash operations; stage 2 and up also
-    # one 256-byte row read and 128 signature compares
-    res["bounds"] = {
-        "D plane": bound(n + T.plane_len(n)),
-        "stage 0": bound(n + 12 * n_cells),
-        "stage 1": bound(n + 12 * n_cells, cand * groups * 20),
-        "stage 2": bound(n + cand * groups * 256 + 12 * n_cells,
-                         cand * groups * (20 + 128)),
-        "stage 3": bound(n + cand * groups * 256
-                         + n_cells * (2 + 2 * K.CAPC2) * 4,
-                         cand * groups * (20 + 128)),
-    }
-    res["err"] = 0
-    res["plain_ms"] = {}
-    for stage in (0, 1, 2):
-        k = K.filter_kconfirm(corpus_t, ft, kt, use_classes=uc, stage=stage)
-        p = K.filter_kconfirm_stage_plain(corpus_t, ft, kt, use_classes=uc,
-                                          stage=stage)
-        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
-        check(e == 0, f"kernel 4 stage {stage} at {n} bytes != plain version")
-        res["err"] = max(res["err"], e)
-        res["plain_ms"][f"stage {stage}"] = cuda_ms(
-            torch, lambda: K.filter_kconfirm_stage_plain(
-                corpus_t, ft, kt, use_classes=uc, stage=stage), 1)
-    return res
-
-
-# --- streaming (runtime/stream.py, runtime/streamset.py) ----------------------
+# --- streaming (runtime/stream.py, runtime/streamset.py) ---------------------
 
 STREAMS = 16_384  # the StreamSet: 16,384 streams x 8 KiB writes a round
 STREAM_WRITE = 8192
-STREAM_ROUNDS = 6  # timed rounds a pass, after two synchronous rounds
-STREAM_PASSES = 2  # timed passes, after one warm pass
+STREAM_ROUNDS = 6  # pipelined rounds a pass, after two synchronous rounds
 SCAN_STREAMS = 1024  # scan_streams: 1,024 streams x 8 KiB
-SCAN_ROUNDS = 4  # timed rounds, after one warm round
-HOST_STREAMS = 16  # scan_streams on the host path (bench.py:315-345)
-HOST_ROUNDS = 8
+SCAN_ROUNDS = 4  # rounds after the first
 ENGINE_STREAMS = 1024  # the bounded DFA: 1,024 streams x 16 KiB x 8 rounds
 ENGINE_WRITE = 16 * 1024
 ENGINE_ROUNDS = 8
@@ -1811,11 +1261,10 @@ def streamset_pass(torch, F, SS, sdb, ext, hreq):
     the writes alone, the others `hreq` bytes of history + the write, of
     STREAM_WRITE bytes a stream): two synchronous rounds, then the others
     pipelined: each round's extents uploaded and its filter started, one
-    confirm_fetch_many, the rounds finished in order. The timed span is
-    the pipelined rounds, uploads included. Returns the per-round match
-    lists, the seconds, the family each timed round started with, the
-    StreamSet and the last round's handle (it holds that round's extent
-    tensor)."""
+    confirm_fetch_many, the rounds finished in order. Returns the
+    per-round match lists, the family each pipelined round started with,
+    the StreamSet and the last round's handle (it holds that round's
+    extent tensor)."""
     n_streams = ext[0].size // STREAM_WRITE
     ss = SS.open_streamset(sdb, n_streams, device=DEVICE)
     wl = np.full(n_streams, STREAM_WRITE, np.int64)
@@ -1827,71 +1276,22 @@ def streamset_pass(torch, F, SS, sdb, ext, hreq):
             chunk_lens=wl)
         out.append(SS.streamset_write_finish(sdb, ss, h))
     hl = np.full(n_streams, hreq, np.int64)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     handles = [SS.streamset_write_start(
         sdb, ss, ext_np=ext[r], ext_t=torch.from_numpy(ext[r]).to(DEVICE),
         hlens=hl, chunk_lens=wl) for r in range(2, len(ext))]
     gots = F.confirm_fetch_many([h.dev_handle for h in handles])
     for h, got in zip(handles, gots):
         out.append(SS.streamset_write_finish(sdb, ss, h, got=got))
-    took = time.perf_counter() - t0
-    return out, took, [h.dev_handle.family for h in handles], ss, \
-        handles[-1]
-
-
-def streamset_breakdown(torch, F, SS, sdb, ext, hreq) -> dict:
-    """Seconds of each stage of one StreamSet round (the third, after two
-    synchronous ones), the stages one by one with a synchronize after
-    each: the upload, streamset_write_start (the family's kernels
-    dispatched), the fetch, and streamset_write_finish; inside the
-    finish, confirm_finish (sort, class expansion) and verify_pairs are
-    timed again on their own, the rest is the windows, chain and dedupe
-    state and the reports."""
-    from hyperscan_tpu_torch.runtime.lit_runtime import verify_pairs
-
-    ss = SS.open_streamset(sdb, STREAMS, device=DEVICE)
-    wl = np.full(STREAMS, STREAM_WRITE, np.int64)
-    for r in (0, 1):
-        SS.scan_streamset(sdb, ss, stream_writes(
-            ext[r], STREAMS, hreq if r else 0, STREAM_WRITE))
-    out = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        out[name] = now - t
-        t = now
-
-    ext_t = torch.from_numpy(ext[2]).to(DEVICE)
-    lap("upload")
-    h = SS.streamset_write_start(sdb, ss, ext_np=ext[2], ext_t=ext_t,
-                                 hlens=np.full(STREAMS, hreq, np.int64),
-                                 chunk_lens=wl)
-    lap("write_start")
-    (got,) = F.confirm_fetch_many([h.dev_handle])
-    lap("fetch")
-    SS.streamset_write_finish(sdb, ss, h, got=got)
-    lap("write_finish")
-    f, p = F.confirm_finish(h.dev_handle, got)
-    lap("of_which_confirm_finish")
-    verify_pairs(sdb.lit, h.ext_np, h.starts, f, p)
-    lap("of_which_verify_pairs")
-    return out
+    return out, [h.dev_handle.family for h in handles], ss, handles[-1]
 
 
 def streaming_path(torch, ht, T, db, edbs, ecorpus) -> dict:
     """Phase 3e, streaming at full width through the stream entry points,
     with the launch counts read right after: the StreamSet (16,384 x 8 KiB
-    rounds, one warm and STREAM_PASSES timed passes), scan_streams over
-    1,024 streams (one warm and SCAN_ROUNDS timed rounds) and over 16
-    streams on the host path, the bounded DFA in stream mode (1,024 x 16
-    KiB x 8 rounds: kernel C entered in carried states), and
-    scan_streams(mesh=) over the 1,024 streams on both meshes."""
-    import gc
-
+    rounds, two passes), scan_streams over 1,024 streams x 1 + SCAN_ROUNDS
+    rounds, the bounded DFA in stream mode (1,024 x 16 KiB x 8 rounds:
+    kernel C entered in carried states), and scan_streams(mesh=) over the
+    1,024 streams on both meshes."""
     from hyperscan_tpu_torch import parallel as P
     from hyperscan_tpu_torch.database import compile_patterns
     from hyperscan_tpu_torch.grey import Grey
@@ -1903,7 +1303,6 @@ def streaming_path(torch, ht, T, db, edbs, ecorpus) -> dict:
     # the 10k ruleset in stream mode: the compiler's output does not
     # depend on the mode, so the block database's blob is loaded again
     # with its mode set (a second compile would take about a minute)
-    t0 = time.perf_counter()
     sdb = ht.deserialize_database(ht.serialize_database(db))
     sdb.mode = ht.HS_MODE_STREAM
     hreq = history_required(sdb)
@@ -1919,76 +1318,40 @@ def streaming_path(torch, ht, T, db, edbs, ecorpus) -> dict:
     e_writes = [[ecorpus[i * per + r * ENGINE_WRITE:
                          i * per + (r + 1) * ENGINE_WRITE].tobytes()
                  for i in range(ENGINE_STREAMS)] for r in range(ENGINE_ROUNDS)]
-    setup_s = time.perf_counter() - t0
-    # keep the long-lived set-up (the databases, the extents) out of the
-    # cyclic collector's scans, as the JAX package's stream bench does
-    gc.collect()
-    gc.freeze()
     meshes = shard_meshes(torch, P)
     before = dict(F.family_state(sdb.lit).dispatches)
     T.reset_launches()
-    try:
-        warm, warm_s, warm_fams, _ss, _h = streamset_pass(torch, F, SS, sdb,
-                                                          ext, hreq)
-        passes = [streamset_pass(torch, F, SS, sdb, ext, hreq)
-                  for _ in range(STREAM_PASSES)]
-        round_stages = streamset_breakdown(torch, F, SS, sdb, ext, hreq)
-        # scan_streams, device path: one warm round, then timed rounds
-        streams = [ht.open_stream(sdb, device=DEVICE)
-                   for _ in range(SCAN_STREAMS)]
-        sc_out, sc_times = [], []
-        for r, w in enumerate(sc_writes):
-            t0 = time.perf_counter()
-            sc_out.append(ht.scan_streams(sdb, streams, w))
-            if r:
-                sc_times.append(time.perf_counter() - t0)
-        sc_out.append([ht.close_stream(st) for st in streams])
-        # scan_streams over 16 streams on the host path
-        with host_limit(sdb, 1 << 30):
-            hs_ = [ht.open_stream(sdb, device=DEVICE)
-                   for _ in range(HOST_STREAMS)]
-            t0 = time.perf_counter()
-            host_n = 0
-            for r in range(HOST_ROUNDS):
-                w = stream_writes(stream_extents(
-                    HOST_STREAMS, STREAM_WRITE, 0, r), HOST_STREAMS, 0,
-                    STREAM_WRITE)
-                host_n += sum(map(len, ht.scan_streams(sdb, hs_, w)))
-            host_s = time.perf_counter() - t0
-        # the bounded DFA in stream mode
-        estreams = [ht.open_stream(edb, device=DEVICE)
-                    for _ in range(ENGINE_STREAMS)]
-        e_out, e_times, e_states = [], [], []
-        for w in e_writes:
-            # the states the streams carry into the round (and, last, out
-            # of the last round): kernel C is checked at these entries
-            e_states.append(np.asarray(
-                [s_.engine_states[0] for s_ in estreams], np.int64))
-            t0 = time.perf_counter()
-            e_out.append(ht.scan_streams(edb, estreams, w))
-            e_times.append(time.perf_counter() - t0)
-        e_states.append(np.asarray([s_.engine_states[0] for s_ in estreams],
-                                   np.int64))
-        e_out.append([ht.close_stream(st) for st in estreams])
-        # scan_streams(mesh=) over the same 1,024 streams' writes
-        mesh_out = {}
-        for name, m in meshes.items():
-            ms_ = [ht.open_stream(sdb, device=DEVICE)
-                   for _ in range(SCAN_STREAMS)]
-            mesh_out[name] = [ht.scan_streams(sdb, ms_, w, mesh=m)
-                              for w in sc_writes]
-            mesh_out[name].append([ht.close_stream(st) for st in ms_])
-        launches = dict(T.LAUNCHES)
-        fams = ran_since(sdb.lit, before)
-    finally:
-        gc.unfreeze()
+    passes = [streamset_pass(torch, F, SS, sdb, ext, hreq) for _ in range(2)]
+    streams = [ht.open_stream(sdb, device=DEVICE)
+               for _ in range(SCAN_STREAMS)]
+    sc_out = [ht.scan_streams(sdb, streams, w) for w in sc_writes]
+    sc_out.append([ht.close_stream(st) for st in streams])
+    # the bounded DFA in stream mode
+    estreams = [ht.open_stream(edb, device=DEVICE)
+                for _ in range(ENGINE_STREAMS)]
+    e_out, e_states = [], []
+    for w in e_writes:
+        # the states the streams carry into the round (and, last, out of
+        # the last round): kernel C is checked at these entries
+        e_states.append(np.asarray(
+            [s_.engine_states[0] for s_ in estreams], np.int64))
+        e_out.append(ht.scan_streams(edb, estreams, w))
+    e_states.append(np.asarray([s_.engine_states[0] for s_ in estreams],
+                               np.int64))
+    e_out.append([ht.close_stream(st) for st in estreams])
+    # scan_streams(mesh=) over the same 1,024 streams' writes
+    mesh_out = {}
+    for name, m in meshes.items():
+        ms_ = [ht.open_stream(sdb, device=DEVICE)
+               for _ in range(SCAN_STREAMS)]
+        mesh_out[name] = [ht.scan_streams(sdb, ms_, w, mesh=m)
+                          for w in sc_writes]
+        mesh_out[name].append([ht.close_stream(st) for st in ms_])
     return {"sdb": sdb, "edb": edb, "hreq": hreq, "ext": ext,
-            "setup_s": setup_s, "warm": (warm, warm_s, warm_fams),
-            "passes": passes, "round_stages": round_stages,
-            "sc": (sc_out, sc_times, sc_writes),
-            "host": (host_n, host_s), "engine": (e_out, e_times, e_writes),
-            "engine_states": e_states,
-            "mesh": mesh_out, "launches": launches, "families": fams}
+            "passes": passes, "sc": (sc_out, sc_writes),
+            "engine": (e_out, e_writes), "engine_states": e_states,
+            "mesh": mesh_out, "launches": dict(T.LAUNCHES),
+            "families": ran_since(sdb.lit, before)}
 
 
 def _as_set(ms) -> set:
@@ -1996,8 +1359,8 @@ def _as_set(ms) -> set:
 
 
 def streaming_checks(ht, db, edbs, st) -> dict:
-    """Phase 3e's checks, all exact: every timed pass equals the warm
-    pass; the first CHECK_STREAMS streams of the StreamSet, of
+    """Phase 3e's checks, all exact: the second StreamSet pass equals the
+    first; the first CHECK_STREAMS streams of the StreamSet, of
     scan_streams and of the bounded-DFA streams equal the port's host
     path (host_scan_limit raised past the write total), round by round
     and at close; each of those streams' writes, concatenated and scanned
@@ -2008,17 +1371,16 @@ def streaming_checks(ht, db, edbs, st) -> dict:
     from hyperscan_tpu_torch.tools.benchdata import stream_plants
 
     sdb, edb, hreq = st["sdb"], st["edb"], st["hreq"]
-    warm = st["warm"][0]
-    for out, _s, _f, _ss, _h in st["passes"]:
-        check(out == warm, "a timed StreamSet pass differs from the warm "
-              "pass")
-    ss = st["passes"][-1][3]
+    warm = st["passes"][0][0]
+    check(st["passes"][1][0] == warm, "the second StreamSet pass differs "
+          "from the first")
+    ss = st["passes"][-1][2]
     ss_close = [ht.close_stream(SS.streamset_stream(ss, i))
                 for i in range(CHECK_STREAMS)]
     writes = [stream_writes(e, CHECK_STREAMS, hreq if r else 0,
                             STREAM_WRITE) for r, e in enumerate(st["ext"])]
-    sc_out, _t, sc_writes = st["sc"]
-    e_out, _t, e_writes = st["engine"]
+    sc_out, sc_writes = st["sc"]
+    e_out, e_writes = st["engine"]
     cases = (("StreamSet", sdb, db, warm + [ss_close], writes),
              ("scan_streams", sdb, db, sc_out, sc_writes),
              ("bounded DFA streams", edb, edbs["bounded_dfa"][0], e_out,
@@ -2072,18 +1434,21 @@ def _arr_err(a, b) -> int:
     return int(np.abs(a - b).max()) if a.size else 0
 
 
-def path_kernel_checks(torch, T, lit, h, clock_hz, what: str):
+def path_kernel_checks(torch, T, lit, h, what: str,
+                       learned: bool = False) -> dict:
     """The kernels of the family of a literal dispatch `h` (a
-    teddy_families.ConfirmHandle: the last timed StreamSet round of 3e,
+    teddy_families.ConfirmHandle: in 3 and 3c each 512 MiB corpus under
+    its default and each forced family; the last StreamSet round of 3e,
     on its own extent tensor of 16,384 stitched extents; in 3g the last
     SOM block scan and SOM round), on its corpus tensor at its
-    capacities, each against its plain version on the same bytes, exact;
-    the hash confirm's pair total also equals the dispatch's own (the
-    same function of the same inputs). `what` names the dispatch in the
-    log and the failures. Returns the max abs error of each kernel, keyed
-    as phase 2c's (and "compact", "confirm" for kernels A and B), and,
-    for the gated family, the rescan's times there (`rescan_times`; else
-    {})."""
+    capacities, each against its plain version on the same bytes, exact
+    (kernel A on the class and on the byte tables); the hash confirm's
+    pair total also equals the dispatch's own (the same function of the
+    same inputs). With `learned` (a scan of the same bytes learned the
+    capacities), no cell holds more candidates than capc. `what` names
+    the dispatch in the log and the failures. Returns the max abs error
+    of each kernel, keyed as phase 2c's (and "compact", "confirm" for
+    kernels A and B)."""
     from hyperscan_tpu_torch.ops import extract as X
     from hyperscan_tpu_torch.ops import teddy_gate as G
     from hyperscan_tpu_torch.ops import teddy_kconfirm as K
@@ -2092,7 +1457,7 @@ def path_kernel_checks(torch, T, lit, h, clock_hz, what: str):
     n = corpus.numel()
     ft, ct = T.device_tables(lit, DEVICE)
     classes = ft.cmasks is not None
-    errs, times = {}, {}
+    errs = {}
     if h.family == "kconfirm":
         kt = K.confirm_planes(lit, DEVICE)
         ok_ = K.filter_kconfirm(corpus, ft, kt, use_classes=classes)
@@ -2106,7 +1471,7 @@ def path_kernel_checks(torch, T, lit, h, clock_hz, what: str):
               f"{what}: its match total != the plain version's")
         log(f"{what} kernels (kconfirm) on its {n} B: "
             f"{int(op_[1].sum())} hash-matched pairs: exact")
-        return errs, times
+        return errs
     if h.family == "dense":
         plane_k = T.filter_plane(corpus, ft, use_classes=classes)
         plane_p = T.filter_plane_plain(corpus, ft, use_classes=classes)
@@ -2124,12 +1489,17 @@ def path_kernel_checks(torch, T, lit, h, clock_hz, what: str):
             fp, kp = G.gate_rows_plain(corpus, gt)
             errs["gate"] = max(int((fk.int() - fp.int()).abs().max()),
                                int((kk - kp).abs().max()))
-            errs["rescan"], times = rescan_times(
-                torch, T, G, corpus, ft, fk, kk, capc, lit_bound(clock_hz))
-            pk, ck = G.rescan_rows(corpus, ft, fk, capc, row_counts=kk)
+            (pk, ck), cp, errs["rescan"] = rescan_err(
+                torch, T, G, corpus, ft, fk, kk, capc)
         else:
             (pk, ck), errs["compact"] = compare_filter(torch, T, corpus, ft,
                                                        capc, classes)
+            if classes:  # the byte tables give the same words
+                errs["compact"] = max(errs["compact"], compare_filter(
+                    torch, T, corpus, ft, capc, False)[1])
+            cp = ck
+        check(not learned or int(cp.max()) <= capc, f"{what}: learned "
+              f"{h.family} capc {capc} below the hottest cell")
         total = int(ck.sum())
         _m, pos = T.compact_combine(pk, ck, capc, h.caps[0])
     for k, e in errs.items():
@@ -2142,7 +1512,7 @@ def path_kernel_checks(torch, T, lit, h, clock_hz, what: str):
           f"{int(h.meta[2])} != the plain version's {int(tot)}")
     log(f"{what} kernels ({h.family}) on its {n} B: "
         f"{total} candidates, {int(tot)} hash-matched pairs: exact")
-    return errs, times
+    return errs
 
 
 def stream_dfa_checks(torch, st) -> int:
@@ -2157,7 +1527,7 @@ def stream_dfa_checks(torch, st) -> int:
 
     (eng,) = st["edb"].engines
     H, CS = DK.chunk_shape(eng)
-    _o, _t, e_writes = st["engine"]
+    _o, e_writes = st["engine"]
     states = st["engine_states"]
     err = n_rec = 0
     for r, w in enumerate(e_writes):
@@ -2199,7 +1569,6 @@ def stream_dfa_checks(torch, st) -> int:
 SOM_PATTERNS = 100  # SOM block ruleset: the first 100 bench patterns ...
 SOM_STREAM_PATTERNS = 96  # ... and the SOM StreamSet's first 96, both
 # without shape 5 (bench.py:391-393, :376-383), SOM_LEFTMOST
-SOM_TIMED = 2  # timed SOM block scans a corpus kind, after a warm one
 SOM_STREAMS = 4096  # the SOM StreamSet: 4,096 streams x 8 KiB, 6 rounds
 SOM_ROUNDS = 6
 BENCH_MB = 64  # the bench at reduced depth: run_config at 64 MiB, 2 scans
@@ -2211,11 +1580,8 @@ BENCH_ROUNDS = 6
 def som_path(torch, ht, T, corpora) -> dict:
     """Phase 3g's driving, with the launch counts set to 0 just before it
     and read just after: the SOM block ruleset through scan_batch over
-    each 512 MiB corpus of `corpora` (a warm scan, then SOM_TIMED timed
-    ones), then the SOM StreamSet (a warm and a timed pass of SOM_ROUNDS
-    pipelined rounds)."""
-    import gc
-
+    each 512 MiB corpus of `corpora`, twice (the repeat equals the first),
+    then the SOM StreamSet (two passes of SOM_ROUNDS pipelined rounds)."""
     from hyperscan_tpu_torch.ops import teddy_families as F
     from hyperscan_tpu_torch.runtime import streamset as SS
     from hyperscan_tpu_torch.runtime.stream import history_required
@@ -2223,7 +1589,6 @@ def som_path(torch, ht, T, corpora) -> dict:
     from hyperscan_tpu_torch.tools.benchdata import stream_extents
 
     som = ht.HS_FLAG_SOM_LEFTMOST
-    t0 = time.perf_counter()
     bdb = bench_db(SOM_PATTERNS, som, (5,))
     check(bdb.lit is not None and not bdb.engines
           and len(bdb.lit.rev_validators) == len(bdb.patterns),
@@ -2234,37 +1599,23 @@ def som_path(torch, ht, T, corpora) -> dict:
     hreq = history_required(sdb)
     ext = [stream_extents(SOM_STREAMS, STREAM_WRITE, hreq if r else 0, r)
            for r in range(2 + SOM_ROUNDS)]
-    setup_s = time.perf_counter() - t0
-    gc.collect()
-    gc.freeze()
     T.reset_launches()
-    try:
-        block = {}
-        for kind, corpus in corpora.items():
+    block = {}
+    for kind, corpus in corpora.items():
+        outs, fams = [], []
+        for _ in range(2):
             before = dict(F.family_state(bdb.lit).dispatches)
-            t0 = time.perf_counter()
-            out = ht.scan_batch(bdb, [corpus], device=DEVICE)[0]
-            warm_s = time.perf_counter() - t0
-            fams, times = [ran_since(bdb.lit, before)], []
-            for _ in range(SOM_TIMED):
-                before = dict(F.family_state(bdb.lit).dispatches)
-                t0 = time.perf_counter()
-                again = ht.scan_batch(bdb, [corpus], device=DEVICE)[0]
-                times.append(time.perf_counter() - t0)
-                fams.append(ran_since(bdb.lit, before))
-                check(again == out, f"SOM block {kind}: a repeated scan "
-                      "differs")
-            block[kind] = (out, warm_s, times, fams)
-        before = dict(F.family_state(sdb.lit).dispatches)
-        passes = [streamset_pass(torch, F, SS, sdb, ext, hreq)
-                  for _ in range(2)]
-        launches = dict(T.LAUNCHES)
-        sfams = ran_since(sdb.lit, before)
-    finally:
-        gc.unfreeze()
+            outs.append(ht.scan_batch(bdb, [corpus], device=DEVICE)[0])
+            fams.append(ran_since(bdb.lit, before))
+        check(outs[1] == outs[0], f"SOM block {kind}: a repeated scan "
+              "differs")
+        block[kind] = (outs[0], fams)
+    before = dict(F.family_state(sdb.lit).dispatches)
+    passes = [streamset_pass(torch, F, SS, sdb, ext, hreq) for _ in range(2)]
     return {"bdb": bdb, "sdb": sdb, "hreq": hreq, "ext": ext,
-            "setup_s": setup_s, "block": block, "passes": passes,
-            "stream_families": sfams, "launches": launches}
+            "block": block, "passes": passes,
+            "stream_families": ran_since(sdb.lit, before),
+            "launches": dict(T.LAUNCHES)}
 
 
 def som_checks(ht, T, sp, corpora) -> None:
@@ -2291,7 +1642,7 @@ def som_checks(ht, T, sp, corpora) -> None:
     edge = PLANT_AT + 4096
     hdb = bench_db(SOM_PATTERNS, ht.HS_FLAG_SOM_LEFTMOST, (5,),
                    grey=Grey(host_scan_limit=PREFIX_BYTES))
-    for kind, (out, _w, _t, _f) in sp["block"].items():
+    for kind, (out, _f) in sp["block"].items():
         got = {m for m in out if m[2] <= edge}
         check(got == want, f"SOM block {kind}: planted-region matches "
               f"{sorted(got)[:4]} != the plants' own at their starts "
@@ -2304,23 +1655,23 @@ def som_checks(ht, T, sp, corpora) -> None:
         log(f"SOM block {kind}: {len(out)} matches; {len(want)} planted "
             f"matches at their starts; 64 MiB prefix == host route "
             f"({len(host)} matches)")
-    warm, timed = sp["passes"][0][0], sp["passes"][1][0]
-    check(timed == warm, "SOM StreamSet: the timed pass differs from the "
-          "warm pass")
+    first, again = sp["passes"][0][0], sp["passes"][1][0]
+    check(again == first, "SOM StreamSet: the second pass differs from the "
+          "first")
     writes = [stream_writes(e, CHECK_STREAMS, hreq if r else 0,
                             STREAM_WRITE) for r, e in enumerate(sp["ext"])]
     streams = [ht.open_stream(sdb, device="cpu")
                for _ in range(CHECK_STREAMS)]
     with host_limit(sdb, 1 << 30):
         host = [ht.scan_streams(sdb, streams, w) for w in writes]
-    for r, (g, h) in enumerate(zip(timed, host)):
+    for r, (g, h) in enumerate(zip(again, host)):
         check([sorted(x) for x in g[:CHECK_STREAMS]]
               == [sorted(x) for x in h], f"SOM StreamSet round {r}: the "
               f"first {CHECK_STREAMS} streams != the host route")
     plants = stream_plants(SOM_STREAMS, len(sp["ext"]) * STREAM_WRITE)
-    found = {(i, m[2]) for rnd in timed for i, ms in enumerate(rnd)
+    found = {(i, m[2]) for rnd in again for i, ms in enumerate(rnd)
              for m in ms if m[0] == 0}
-    starts_ok = all(m[1] == m[2] - len(STREAM_PLANT) + 1 for rnd in timed
+    starts_ok = all(m[1] == m[2] - len(STREAM_PLANT) + 1 for rnd in again
                     for ms in rnd for m in ms if m[0] == 0)
     check(plants and plants <= found and starts_ok, f"SOM StreamSet: "
           f"{len(plants - found)} of {len(plants)} planted matches missing "
@@ -2341,46 +1692,39 @@ def bench_reduced(T, db100, sdb) -> dict:
     from hyperscan_tpu_torch.tools import bench as B
 
     T.reset_launches()
-    t0 = time.perf_counter()
-    g, m, _c = B.run_config(100, DEVICE, corpus_mb=BENCH_MB,
-                            iters=BENCH_ITERS, db=db100)
-    gs, nm = B.run_streamset(sdb, BENCH_STREAMS, BENCH_ROUNDS, DEVICE)
+    _g, m, _c = B.run_config(100, DEVICE, corpus_mb=BENCH_MB,
+                             iters=BENCH_ITERS, db=db100)
+    _g, nm = B.run_streamset(sdb, BENCH_STREAMS, BENCH_ROUNDS, DEVICE)
     launches = dict(T.LAUNCHES)
     check(m >= BENCH_ITERS * len(PLANTS),
           f"the bench at reduced depth: {m} block matches")
     check(any(launches[k] > 0 for k in FAMILY_FILTERS.values()),
           "the bench at reduced depth launched no filter kernel")
-    return {"block_gb_s": g, "block_matches": m, "stream_gb_s": gs,
-            "stream_matches": nm, "launches": launches,
-            "s": time.perf_counter() - t0}
+    return {"block_matches": m, "stream_matches": nm, "launches": launches}
 
 
 # --- the main path -----------------------------------------------------------
 
 
+DEFAULT_FAMILY = {"structured": "gated", "iid": "kconfirm"}  # last scans'
+
+
 def main_path(ht, T, db, kind: str):
-    """Phase 3 for one corpus kind: scan_batch over 512 MB (one warm scan
-    that learns the capacities and the family, then TIMED_SCANS timed
-    ones). Returns the corpus, the matches, the warm and timed seconds
-    and the families each scan ran (warm first, from the launch counts)."""
+    """Phase 3 for one corpus kind: scan_batch over 512 MB twice (the
+    first scan learns the capacities and the family; the repeat must
+    equal it). Returns the corpus, the matches and the families each scan
+    ran (from the dispatch counts)."""
     from hyperscan_tpu_torch.ops import teddy_families as F
 
     corpus = gen_corpus(MAIN_BYTES, 1, kind)
     st = F.family_state(db.lit)
-    fams = []
-    before = dict(st.dispatches)
-    t0 = time.perf_counter()
-    out = ht.scan_batch(db, [corpus], device=DEVICE)[0]
-    warm_s = time.perf_counter() - t0
-    fams.append(ran_since(db.lit, before))
-    times = []
-    for _ in range(TIMED_SCANS):
+    outs, fams = [], []
+    for _ in range(2):
         before = dict(st.dispatches)
-        t0 = time.perf_counter()
-        out2 = ht.scan_batch(db, [corpus], device=DEVICE)[0]
-        times.append(time.perf_counter() - t0)
+        outs.append(ht.scan_batch(db, [corpus], device=DEVICE)[0])
         fams.append(ran_since(db.lit, before))
-        check(out2 == out, f"{kind}: repeated scan differs")
+    out = outs[0]
+    check(outs[1] == out, f"{kind}: repeated scan differs")
     # the planted region: the same matches as the host path over it
     edge = PLANT_AT + 4096
     host = ht.scan(db, corpus[:edge + 64].tobytes(), device="cpu")
@@ -2388,7 +1732,7 @@ def main_path(ht, T, db, kind: str):
     got = {m for m in out if m[2] <= edge}
     check(got == want, f"{kind}: planted-region matches differ from host")
     check(len(want) >= len(PLANTS), f"{kind}: planted matches missing")
-    return corpus, out, warm_s, times, fams
+    return corpus, out, fams
 
 
 def prefix_differential(torch, T, db, corpus, host: set) -> tuple:
@@ -2407,155 +1751,6 @@ def prefix_differential(torch, T, db, corpus, host: set) -> tuple:
     check(dev == host, f"64 MB prefix: device {len(dev)} pairs, host "
           f"{len(host)}, missing {len(host - dev)}, extra {len(dev - host)}")
     return len(dev), len(host)
-
-
-def breakdown(torch, T, db, corpus) -> dict:
-    """Seconds of each stage of one 512 MB scan, the stages of
-    scan_batch done one by one with a synchronize after each."""
-    from hyperscan_tpu_torch.runtime.lit_runtime import (
-        finish_confirmed, verify_pairs)
-    from hyperscan_tpu_torch.runtime.scan import (
-        RecordSink, finalize_reports)
-    from hyperscan_tpu_torch.ops import teddy_families as F
-
-    lit = db.lit
-    n = len(corpus)
-    starts, ends = np.zeros(1, np.int64), np.asarray([n], np.int64)
-    out = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        out[name] = now - t
-        t = now
-
-    blocks = [bytes(corpus)]
-    lap("bytes_copy")
-    flat = np.concatenate([np.frombuffer(b, dtype=np.uint8) for b in blocks])
-    lap("concatenate")
-    corpus_t = T.corpus_tensor(flat, DEVICE)
-    lap("upload")
-    handle = F.confirm_start(corpus_t, lit, n)
-    lap("device_filter_confirm")
-    f, p = F.confirm_finish(handle)
-    lap("fetch_sort_expand")
-    f, p = verify_pairs(lit, flat, starts, f, p)
-    lap("verify_pairs")
-    recs = finish_confirmed(db, flat, starts, ends, f, p)
-    sink = RecordSink()
-    for (_b, e, to, frm) in recs:
-        sink.add(e, to, frm)
-    finalize_reports(db, sink.materialize(n), end_offset=n)
-    lap("windows_and_reports")
-    return out
-
-
-def kernel_times(torch, T, db, corpus, clock_hz) -> dict:
-    """Phase 4: both kernels at the main path's shapes (the learned
-    capacities), against their plain versions, bounds and yardsticks."""
-    from hyperscan_tpu_torch.ops import teddy_families as F
-
-    lit = db.lit
-    cap1, capc, cap2 = F._caps_for(lit, 1 << 14)
-    corpus_t = T.corpus_tensor(corpus, DEVICE)
-    ft, ct = T.device_tables(lit, DEVICE)
-    n = corpus_t.numel()
-    n_cells = T._n_cells(n)
-    M, W = ft.M, ft.W
-    use_classes = ft.cmasks is not None
-
-    def filter_timing(classes: bool) -> dict:
-        (pos_c, cnt), err = compare_filter(torch, T, corpus_t, ft, capc,
-                                           classes)
-        ms = cuda_ms(torch, lambda: T.filter_compact(
-            corpus_t, ft, capc, use_classes=classes), 10)
-        plain = cuda_ms(torch, lambda: T.filter_compact_plain(
-            corpus_t, ft, capc, use_classes=classes), 2)
-        tab_bytes = M * W * (128 if classes else 256) * 4
-        t_bytes = (n + n_cells * (capc + 1) * 4 + tab_bytes) \
-            / HBM_BYTES_PER_S * 1e3
-        lookups = n * M * W  # the words either route gives
-        t_ops = lookups / (SMEM_LOOKUPS_PER_CLK * clock_hz) * 1e3
-        return {"ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                "err": err, "out": (pos_c, cnt)}
-
-    a = filter_timing(use_classes)
-    pos_c, cnt = a.pop("out")
-    a_bytes = filter_timing(False) if use_classes else dict(a)
-    a_bytes.pop("out", None)
-    # the compaction yardstick: torch.nonzero over the candidate plane
-    total = int(cnt.sum())
-    check(int(cnt.max()) <= capc, "learned capc below the hottest cell")
-    valid = (torch.arange(capc, device=DEVICE)[None, :] < cnt[:, None])
-    plane = torch.zeros(n, dtype=torch.uint8, device=DEVICE)
-    plane[pos_c[valid].long()] = 1
-    nz_ms = cuda_ms(torch, lambda: torch.nonzero(plane), 5)
-    del plane
-
-    meta1, pos = T.compact_combine(pos_c, cnt, capc, cap1)
-    (_pairs, tot), err_b = compare_confirm(torch, T, corpus_t, pos, ct, cap2)
-    b = confirm_times(torch, T, corpus_t, pos, ct, cap2, int(tot))
-    k = min(total, cap1)
-    probes = sum(g[4] for g in ct.groups)
-    b_bytes = (cap1 * 4 + k * 8 + min(k * probes * 4, ct.slots.numel() * 4)
-               + ct.meta.numel() * 4 + int(tot) * 8 + 4)
-    # per candidate and group: the masks, two multiplies, the avalanche
-    # (two shifts, two xors, a multiply) and, per probe, an add, a mask,
-    # a compare (a dozen operations and two a probe)
-    b_ops = k * sum(12 + 2 * g[4] for g in ct.groups)
-    t_bytes = b_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = b_ops / (INT_OPS_PER_CLK * clock_hz) * 1e3
-    return {
-        "M": M, "W": W, "classes": use_classes, "capc": capc, "cap1": cap1,
-        "cap2": cap2, "n_cells": n_cells, "candidates": total,
-        "max_cell": int(cnt.max()), "pairs": int(tot),
-        "a": dict(a, nonzero_ms=nz_ms), "a_bytes_tables": a_bytes,
-        "b": dict(b, bound_ms=max(t_bytes, t_ops),
-                  bound_by="operations" if t_ops > t_bytes else "bytes",
-                  bytes_ms=t_bytes, operations_ms=t_ops, err=err_b),
-    }
-
-
-def confirm_times(torch, T, corpus_t, pos, ct, cap2, pairs_n) -> dict:
-    """Kernel B at the main path's inputs: the wrapper as the path calls
-    it (the counter's memset and the kernel; `ms`), the kernel alone (its
-    launch entry on a counter zeroed once, with room for every call's
-    `pairs_n` pairs, so each call writes all of them; `kernel_ms`), the
-    launch floor (both over a list of -1s; `floor_ms`, `floor_kernel_ms`)
-    and the plain version."""
-    lib = T._confirm_lib()
-    dev = corpus_t.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    reps = 50
-    cap_t = (reps + 1) * max(pairs_n, 1)  # cuda_ms makes reps + 1 calls
-    pairs = torch.empty((cap_t, 2), dtype=torch.int32, device=dev)
-    total = torch.zeros(1, dtype=torch.int32, device=dev)
-    none = torch.full_like(pos, -1)
-
-    def launch(p):
-        args = T.confirm_args(corpus_t, p, ct)
-        rc = lib.hs_teddy_hash_confirm_launch(*args, pairs.data_ptr(), cap_t,
-                                              total.data_ptr(), stream)
-        check(rc == 0, "teddy_hash_confirm_launch failed")
-
-    out = {
-        "ms": cuda_ms(torch, lambda: T.hash_confirm(corpus_t, pos, ct, cap2),
-                      reps),
-        "kernel_ms": cuda_ms(torch, lambda: launch(pos), reps)}
-    torch.cuda.synchronize()
-    check(int(total) == (reps + 1) * pairs_n,
-          "kernel B timing calls lost pairs")
-    out.update({
-        "floor_ms": cuda_ms(torch, lambda: T.hash_confirm(
-            corpus_t, none, ct, cap2), reps),
-        "floor_kernel_ms": cuda_ms(torch, lambda: launch(none), reps),
-        "plain_ms": cuda_ms(torch, lambda: T.hash_confirm_plain(
-            corpus_t, pos, ct, cap2), 5),
-        "library_ms": None})
-    return out
 
 
 # --- phase 5: the differential tools on the card ----------------------------
@@ -2656,10 +1851,8 @@ def chimera_path(T) -> dict:
     data = bytes(data)
     check(len(data) > pf.host_scan_limit, "Chimera buffer below the limit")
     T.reset_launches()
-    t0 = time.perf_counter()
     got = []
     rc = ch.ch_scan(db, data, matches=got, device=DEVICE)
-    card_s = time.perf_counter() - t0
     launches = dict(T.LAUNCHES)
     want = []
     rc_cpu = ch.ch_scan(db, data, matches=want, device="cpu")
@@ -2671,7 +1864,7 @@ def chimera_path(T) -> dict:
                                         "teddy_rescan_rows", "teddy_kconfirm",
                                         "teddy_filter_plane")),
           "Chimera's prefilter launched no filter kernel")
-    return {"matches": len(got), "plants": n_plants, "card_s": card_s,
+    return {"matches": len(got), "plants": n_plants,
             "launches": launches}
 
 
@@ -2687,7 +1880,7 @@ FEATURE_KERNELS = ("teddy_filter_compact", "teddy_hash_confirm", "dfa_scan",
                    "nfa_layered")  # kernels A, B, C and D
 
 
-def feature_kernel_checks(torch, T, clock_hz, name: str):
+def feature_kernel_checks(torch, T, name: str):
     """Phase 7's kernel checks for feature `name`, as run_feature's
     `kernel_checks` hook: after the database's scan, the literal
     family's kernels at the path's input (the scanned corpus dispatched
@@ -2715,8 +1908,7 @@ def feature_kernel_checks(torch, T, clock_hz, name: str):
                                 corpus.size)
             check(h.family in ran, f"feature {name}: dispatch family "
                   f"{h.family} is not one the scan ran ({sorted(ran)})")
-            errs, _t = path_kernel_checks(torch, T, db.lit, h, clock_hz,
-                                          f"feature {name}")
+            errs = path_kernel_checks(torch, T, db.lit, h, f"feature {name}")
             del h
         last = corpus[-block:]
         for eng in db.engines:
@@ -2754,7 +1946,7 @@ def feature_kernel_checks(torch, T, clock_hz, name: str):
     return held
 
 
-def feature_path(torch, T, card: str, clock_hz) -> dict:
+def feature_path(torch, T, card: str) -> dict:
     """Phase 7, with the launch counts set to 0 just before it and read
     just after: tools/features.run_feature for every feature database on
     the card, each kernel the database ran held against its plain
@@ -2765,10 +1957,7 @@ def feature_path(torch, T, card: str, clock_hz) -> dict:
 
     from hyperscan_tpu_torch.tools import features as FT
 
-    t0 = time.perf_counter()
     base = FT.base_corpus(FEATURE_BYTES, FEATURE_SEED)
-    log(f"feature corpus: {FEATURE_BYTES} B in "
-        f"{time.perf_counter() - t0:.1f} s")
     per = {}
     T.reset_launches()
     for name in FT.FEATURES:
@@ -2782,7 +1971,7 @@ def feature_path(torch, T, card: str, clock_hz) -> dict:
             streams=FEATURE_STREAMS, write=STREAM_WRITE,
             rounds=FEATURE_ROUNDS, check_streams=CHECK_STREAMS,
             sync=torch.cuda.synchronize,
-            kernel_checks=feature_kernel_checks(torch, T, clock_hz, name))
+            kernel_checks=feature_kernel_checks(torch, T, name))
         r["launches"] = {k: v - before[k] for k, v in T.LAUNCHES.items()
                          if v > before[k]}
         gc.collect()
@@ -2791,20 +1980,14 @@ def feature_path(torch, T, card: str, clock_hz) -> dict:
         check(r["mem_left"] <= 512, f"feature {name}: dropping the database "
               f"left {r['mem_left']} B allocated on the card")
         per[name] = r
-        st = r["stages"]
         line = (f"feature {name}: {r['plants']} plants found, "
-                f"{r['matches']} matches; scan {st['scan']:.3f} s -> "
-                f"{r['bytes'] / st['scan'] / 1e9:.3f} GB/s")
+                f"{r['matches']} matches")
         if "stream_bytes" in r:
             line += (f"; StreamSet {FEATURE_STREAMS} x {STREAM_WRITE} B x "
-                     f"{FEATURE_ROUNDS} rounds {st['streamset']:.3f} s -> "
-                     f"{r['stream_bytes'] / st['streamset'] / 1e9:.3f} GB/s,"
-                     f" close of every stream {st['stream_close']:.3f} s, "
-                     f"{r['stream_matches']} matches")
+                     f"{FEATURE_ROUNDS} rounds, {r['stream_matches']} "
+                     "matches")
         log(f"{line}; families {r.get('families', {})}; launches "
             f"{r['launches']}; memory left {r['mem_left']} B [{card}]")
-        log(f"feature {name} stage seconds [{card}]: "
-            + json.dumps({k: round(v, 6) for k, v in st.items()}))
     launches = dict(T.LAUNCHES)
     for k in FEATURE_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched in the feature "
@@ -2827,10 +2010,11 @@ def surface_path(torch, T, db, clock_hz) -> dict:
     card 0 (built as shard_meshes builds them) and the kconfirm bench
     (kconf_bench.run: kconfirm and compact forced over KCONF_MB MiB iid
     with the 10k ruleset `db`), then the launch counts read; then the
-    kernel bench at reduced depth (kernel_bench.run_benches: each kernel
-    held against its plain version on the block it times, its timed
-    launches added to the counts); then surface_kernel_checks on the
-    inputs the phase gave the kernels."""
+    kernel bench at reduced depth (kernel_bench.run_benches over KBENCH_MB
+    MiB, the literal benches with `db`: each kernel held against its
+    plain version on the input it times, its timed launches added to the
+    counts); then surface_kernel_checks on the inputs the phase gave the
+    kernels."""
     from hyperscan_tpu_torch import graft_entry as GE
     from hyperscan_tpu_torch.parallel import SHARD_AXIS, Mesh
     from hyperscan_tpu_torch.tools import kconf_bench as KC
@@ -2838,38 +2022,28 @@ def surface_path(torch, T, db, clock_hz) -> dict:
 
     out = {}
     T.reset_launches()
-    t0 = time.perf_counter()
     fn, args = GE.entry(DEVICE)
     got = fn(*args)
-    torch.cuda.synchronize()
-    out["entry_s"] = time.perf_counter() - t0
     mesh = Mesh([torch.device(DEVICE, 0)] * SURFACE_SHARDS, (SHARD_AXIS,))
-    t0 = time.perf_counter()
     out["dryrun"] = GE.dryrun_multichip(SURFACE_SHARDS, DEVICE, mesh=mesh)
-    out["dryrun_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     out["kconf"] = KC.run(db, KCONF_MB, KCONF_ITERS, "iid", KC.FAMILIES,
                           DEVICE)
-    out["kconf_s"] = time.perf_counter() - t0
     launches = dict(T.LAUNCHES)
     for k in ("dfa_scan_rows", "teddy_words_count", "teddy_kconfirm",
               "teddy_filter_compact", "teddy_hash_confirm"):
         check(launches[k] > 0, f"kernel {k} was not launched in phase 8")
-    t0 = time.perf_counter()
     out["kbench"] = KB.run_benches(sizes_mb=KBENCH_MB, reps=KBENCH_REPS,
-                                   device=DEVICE, clock_hz=clock_hz)
-    out["kbench_s"] = time.perf_counter() - t0
+                                   device=DEVICE, clock_hz=clock_hz, db=db)
     for r in out["kbench"].values():
-        launches[r["kernel"]] += r["launches"]
+        for k, n in r["launches"].items():
+            launches[k] += n
     out["launches"] = launches
-    t0 = time.perf_counter()
     out["errs"], out["total"] = surface_kernel_checks(
-        torch, T, db, args, got, out["dryrun"], out["kconf"], clock_hz)
-    out["checks_s"] = time.perf_counter() - t0
+        torch, T, db, args, got, out["dryrun"], out["kconf"])
     return out
 
 
-def surface_kernel_checks(torch, T, db, args, got, dr, kconf, clock_hz):
+def surface_kernel_checks(torch, T, db, args, got, dr, kconf):
     """Phase 8's kernels at the inputs the phase gave them, each against
     its plain version, exact:
     - entry(): its five outputs equal entry(device="cpu")'s, and kernel
@@ -2907,8 +2081,7 @@ def surface_kernel_checks(torch, T, db, args, got, dr, kconf, clock_hz):
         return e
 
     def literal(lit, h, what):
-        e, _t = path_kernel_checks(torch, T, lit, h, clock_hz, what)
-        for k, v in e.items():
+        for k, v in path_kernel_checks(torch, T, lit, h, what).items():
             errs[k] = max(errs.get(k, 0), v)
 
     # entry() on the card against the CPU, its row mode against plain
@@ -2973,31 +2146,58 @@ def surface_kernel_checks(torch, T, db, args, got, dr, kconf, clock_hz):
 
 
 def log_surface(sf: dict, card: str) -> None:
-    dr = sf["dryrun"]
-    log(f"entry() on the card: {sf['total']} matches, its five outputs == "
-        f"entry(device='cpu'), row mode == dfa_scan_batch_plain, "
-        f"{sf['entry_s']:.3f} s [{card}]")
-    log(f"dryrun_multichip({SURFACE_SHARDS}) on {sorted(set(dr['devices']))}"
-        f": DFA count {dr['count']} == gathered, teddy candidates "
-        f"{dr['teddy_count']}, product path "
-        f"{sum(map(len, dr['single']))} matches sharded == unsharded, "
-        f"scaling proxy {dr['proxy_s'][0]:.4f} -> {dr['proxy_s'][1]:.4f} s; "
-        f"{sf['dryrun_s']:.1f} s [{card}]")
     from hyperscan_tpu_torch.tools import kconf_bench as KC
     from hyperscan_tpu_torch.tools import kernel_bench as KB
 
+    dr = sf["dryrun"]
+    log(f"entry() on the card: {sf['total']} matches, its five outputs == "
+        f"entry(device='cpu'), row mode == dfa_scan_batch_plain [{card}]")
+    log(f"dryrun_multichip({SURFACE_SHARDS}) on {sorted(set(dr['devices']))}"
+        f": DFA count {dr['count']} == gathered, teddy candidates "
+        f"{dr['teddy_count']}, product path "
+        f"{sum(map(len, dr['single']))} matches sharded == unsharded "
+        f"[{card}]")
     for line in KB.report(sf["kbench"], card):
         log("kernel bench: " + line)
-    log(f"kernel bench {sf['kbench_s']:.1f} s")
-    log(f"phase-8 kernel checks on the phase's inputs (entry() row mode; "
-        f"the dry run's DFA shards, filter segments and product corpus; "
-        f"the kconfirm bench's last scan of each family): exact, "
-        f"{sf['checks_s']:.1f} s")
-    for line in KC.report(sf["kconf"], KCONF_MB, KCONF_ITERS, card):
-        log("kconfirm bench: " + line)
+    log("phase-8 kernel checks on the phase's inputs (entry() row mode; "
+        "the dry run's DFA shards, filter segments and product corpus; "
+        "the kconfirm bench's last scan of each family): exact")
     pairs = [len(p) for p in sf["kconf"][KC.FAMILIES[0]]["pairs"]]
     log(f"kconfirm bench: verified pairs of {' and '.join(KC.FAMILIES)} "
-        f"equal in every timed scan ({pairs}); {sf['kconf_s']:.1f} s")
+        f"equal in every scan ({pairs})")
+
+
+# the kernels line: each kernel, its source, the TPU kernel it replaces and
+# its key in the checks' max abs errors
+KERNELS = (
+    ("teddy_filter_compact", "teddy_filter_compact.cu",
+     "hyperscan_tpu/ops/teddy.py:1103", "compact"),
+    ("teddy_hash_confirm", "teddy_hash_confirm.cu",
+     "hyperscan_tpu/ops/teddy.py:1281", "confirm"),
+    ("dfa_scan", "dfa_scan.cu", "hyperscan_tpu/ops/dfa_kernel.py:132",
+     "dfa_scan"),
+    ("dfa_scan_rows", "dfa_scan.cu", "hyperscan_tpu/ops/dfa.py:27",
+     "dfa_batch"),
+    ("nfa_layered", "nfa_layered.cu", "hyperscan_tpu/ops/nfa_kernel.py:476",
+     "nfa_layered"),
+    ("teddy_gate", "teddy_gate.cu", "hyperscan_tpu/ops/teddy.py:1381",
+     "gate"),
+    ("teddy_rescan_rows", "teddy_rescan_rows.cu",
+     "hyperscan_tpu/ops/teddy.py:1424", "rescan"),
+    ("teddy_kconfirm", "teddy_kconfirm.cu", "hyperscan_tpu/ops/teddy.py:1081",
+     "kconfirm"),
+    ("teddy_filter_plane", "teddy_filter_compact.cu",
+     "hyperscan_tpu/ops/teddy.py:1116", "plane"),
+    ("plane_extract", "plane_extract.cu", "hyperscan_tpu/ops/teddy.py:793",
+     "extract"),
+    ("teddy_words_count", "teddy_words.cu",
+     "hyperscan_tpu/parallel/sharded.py:237", "words"),
+    ("teddy_words_list", "teddy_words.cu", "hyperscan_tpu/ops/teddy.py:762",
+     "words"),
+    ("teddy_kconfirm_stage", "teddy_kconfirm.cu",
+     "tools_probe_rank_bisect.py:163, tools_probe_kconf_split.py:128",
+     "stage"),
+)
 
 
 def main() -> int:
@@ -3015,6 +2215,12 @@ def main() -> int:
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     log(f"card: {card}; max SM clock {clock_hz / 1e6:.0f} MHz; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    errs = dict.fromkeys((k[3] for k in KERNELS), 0)
+
+    def merge(more: dict) -> None:
+        # a check's max abs errors into the kernels line's
+        for k, e in more.items():
+            errs[k] = max(errs[k], e)
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -3040,81 +2246,82 @@ def main() -> int:
         log(f"compiled {n_pat} patterns in {time.perf_counter() - t0:.1f} s"
             f" (M={db.lit.masks.shape[0]}, W={db.lit.masks.shape[1]})")
     err_a, err_b = kernel_checks(torch, T, dbs)
-    err_b = max(err_b, confirm_edge_cases(torch, T, ht))
+    merge({"compact": err_a, "confirm": err_b})
+    merge({"confirm": confirm_edge_cases(torch, T, ht)})
 
     # phase 2b: the engine kernels at 16 MB
     edbs = engine_dbs(ht)
     err_c, err_d = engine_kernel_checks(torch, edbs)
+    merge({"dfa_scan": err_c, "nfa_layered": err_d})
 
     # phase 2c: the literal families' kernels at 16 MB and on a flood
     fdb = flood_db(ht)
-    ferr = family_kernel_checks(torch, T, dbs[10_000], fdb)
+    merge(family_kernel_checks(torch, T, dbs[10_000], fdb))
 
     # phase 2d: kernel 7 and the batch DFA scan at 16 MB
-    merr = multi_kernel_checks(torch, T, dbs[10_000], edbs)
+    merge(multi_kernel_checks(torch, T, dbs[10_000], edbs))
 
     # phase 2e: kernel 4's stage modes at 16 MB
-    serr = stage_kernel_checks(torch, T, dbs[10_000])
+    merge({"stage": stage_kernel_checks(torch, T, dbs[10_000])})
 
     # phase 3: the main path under the default family choice: 10k
     # ruleset, 512 MB, both corpus kinds; then the flood database
     db = dbs[10_000]
+    check(T.device_tables(db.lit, DEVICE)[0].cmasks is not None,
+          "the 10k ruleset's masks do not compress to class tables")
     T.reset_launches()
     runs, fams = {}, {}
     for kind in ("structured", "iid"):
-        *run, fams[kind] = main_path(ht, T, db, kind)
-        runs[kind] = tuple(run)
+        corpus, out, fams[kind] = main_path(ht, T, db, kind)
+        runs[kind] = (corpus, out)
     flood = flood_main_path(ht, T, fdb)
-    launches = dict(T.LAUNCHES)
-    log(f"main-path launches: {launches}")
+    launches = {"main": dict(T.LAUNCHES)}
+    log(f"main-path launches: {launches['main']}")
     for kind in runs:
-        log(f"families per scan {kind} (warm first): {fams[kind]}")
+        log(f"families per scan {kind}: {fams[kind]}")
     log(f"flood main path: {flood}")
     for k in ("teddy_filter_compact", "teddy_hash_confirm", "teddy_gate",
               "teddy_rescan_rows", "teddy_kconfirm", "teddy_filter_plane",
               "plane_extract"):
-        check(launches[k] > 0, f"kernel {k} was not launched on the main "
-              "path")
-    check(all("gated" in f for f in fams["structured"]),
+        check(launches["main"][k] > 0, f"kernel {k} was not launched on the "
+              "main path")
+    check(all(DEFAULT_FAMILY["structured"] in f for f in fams["structured"]),
           "a structured scan did not run the gated family")
-    check(all(f == ["kconfirm"] for f in fams["iid"][1:]),
-          "an iid timed scan did not run the kconfirm family")
+    check(all(f == [DEFAULT_FAMILY["iid"]] for f in fams["iid"][1:]),
+          "the repeated iid scan did not run the kconfirm family")
     hosts = {kind: host_prefix(db.lit, r[0]) for kind, r in runs.items()}
-    for kind, (corpus, out, warm_s, times) in runs.items():
+    for kind, (corpus, out) in runs.items():
         dev_n, host_n = prefix_differential(torch, T, db, corpus,
                                             hosts[kind])
-        mean = sum(times) / len(times)
-        log(f"main path {kind}: {len(out)} matches; 64 MB prefix verified "
-            f"pairs device {dev_n} == host {host_n}; warm scan "
-            f"{warm_s:.3f} s; timed scans {[round(t, 4) for t in times]} s "
-            f"-> {MAIN_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
-            f"the corpus inside the timed loop) [{card}]")
+        log(f"main path {kind}: {len(out)} matches, the repeat equal; 64 MB "
+            f"prefix verified pairs device {dev_n} == host {host_n}")
+        merge(main_kernel_checks(torch, T, db.lit, corpus,
+                                 DEFAULT_FAMILY[kind], f"main path {kind}"))
 
     # phase 3c: each family forced in turn, 512 MB, both corpus kinds
-    forced = forced_families(torch, ht, T, db, runs, hosts)
+    merge(forced_families(torch, ht, T, db, runs, hosts))
 
     # phase 3b: the engine path, one database per route, 256 MiB
     ecorpus = gen_engine_corpus(ENGINE_BYTES, 5)
     T.reset_launches()
     eruns = engine_path(ht, edbs, ecorpus)
-    elaunch = dict(T.LAUNCHES)
-    log(f"engine-path launches: {elaunch}")
+    launches["engine"] = dict(T.LAUNCHES)
+    log(f"engine-path launches: {launches['engine']}")
     for k in ("dfa_scan", "nfa_layered"):
-        check(elaunch[k] > 0, f"kernel {k} was not launched on the engine "
-              "path")
+        check(launches["engine"][k] > 0, f"kernel {k} was not launched on "
+              "the engine path")
     ediff = engine_host_differential(ht, edbs, ecorpus)
-    for (route, shape), (n_match, warm_s, times) in eruns.items():
-        mean = sum(times) / len(times)
-        log(f"engine path {route} {shape}: {n_match} matches; 32 MiB "
-            f"device == host ({ediff[(route, shape)]} matches); warm scan "
-            f"{warm_s:.3f} s; timed scans {[round(t, 4) for t in times]} s "
-            f"-> {ENGINE_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
-            f"the corpus inside the timed loop) [{card}]")
+    for (route, shape), n_match in eruns.items():
+        log(f"engine path {route} {shape}: {n_match} matches, the repeat "
+            f"equal; 32 MiB device == host ({ediff[(route, shape)]} "
+            "matches)")
+    err_c, err_d = engine_path_kernel_checks(torch, edbs, ecorpus)
+    merge({"dfa_scan": err_c, "nfa_layered": err_d})
 
     # phase 3d: the multi-device path at full width, on the visible
     # cards and on four shards of one card
     sh = sharded_path(torch, ht, T, db, runs, edbs, ecorpus)
-    mlaunch = sh["launches"]
+    launches["sharded"] = mlaunch = sh["launches"]
     log(f"sharded-path launches: {mlaunch}; literal families: "
         f"{sh['families']}")
     for k in ("teddy_words_count", "teddy_words_list", "dfa_scan_rows"):
@@ -3125,33 +2332,7 @@ def main() -> int:
                                  for f in sh["families"]),
           f"the sharded literal path's families {sh['families']} did not "
           "launch their filter kernels")
-    sharded_checks(torch, ht, T, db, edbs, sh)
-    for kind, (r, blocks) in sh["lit"].items():
-        log(f"teddy_scan {kind}: {r['total']} candidates in "
-            f"{r['teddy_scan_s']:.3f} s (upload included) [{card}]")
-        times = r["unsharded_times"]
-        log(f"unsharded {kind} over {len(blocks)} blocks: timed scans "
-            f"{[round(t, 4) for t in times]} s -> "
-            f"{MAIN_BYTES / (sum(times) / len(times)) / 1e9:.3f} GB/s end "
-            f"to end [{card}]")
-        for name in sh["meshes"]:
-            cnt, cnt_s = r["counts"][name]
-            lists, times = r["lists"][name]
-            mean = sum(times) / len(times)
-            log(f"sharded {kind} on {name}: sharded_teddy_count {cnt} in "
-                f"{cnt_s:.3f} s; scan_batch(mesh=) over {len(blocks)} "
-                f"blocks: {sum(map(len, lists))} matches, timed scans "
-                f"{[round(t, 4) for t in times]} s -> "
-                f"{MAIN_BYTES / mean / 1e9:.3f} GB/s end to end (upload of "
-                f"the corpus inside the timed loop) [{card}]")
-            log(f"sharded {kind} on {name} stage seconds [{card}]: "
-                + json.dumps({k: round(v, 6)
-                              for k, v in r["stages"][name].items()}))
-    for name, (cnt, _mt, t_c, t_m) in sh["dfa"].items():
-        log(f"sharded DFA on {name}: sharded_scan_counts {cnt} in "
-            f"{t_c:.3f} s, sharded_scan_matches in {t_m:.3f} s "
-            f"({ENGINE_BYTES / t_c / 1e9:.3f} / {ENGINE_BYTES / t_m / 1e9:.3f}"
-            f" GB/s, upload included) [{card}]")
+    merge(sharded_checks(torch, ht, T, db, edbs, sh))
 
     # phase 3f: the multi-process mesh at 3d's width, two processes
     t3f = time.perf_counter()
@@ -3178,53 +2359,14 @@ def main() -> int:
           "streaming path")
     sn = streaming_checks(ht, db, edbs, st)
     # the path's kernels at the path's inputs, against their plain versions
-    rerr, rtimes = path_kernel_checks(
-        torch, T, st["sdb"].lit, st["passes"][-1][4].dev_handle, clock_hz,
-        "StreamSet round")
-    if rtimes:
-        log(f"StreamSet round rescan times [{card}]: "
-            + json.dumps(rtimes, sort_keys=True))
-    err_c = max(err_c, stream_dfa_checks(torch, st))
-
-    def merge(errs):
-        # a path kernel check's errors into the kernels' max_abs_err
-        nonlocal err_a, err_b
-        err_a = max(err_a, errs.pop("compact", 0))
-        err_b = max(err_b, errs.pop("confirm", 0))
-        for k, e in errs.items():
-            ferr[k] = max(ferr[k], e)
-
-    merge(rerr)
-    hreq = st["hreq"]
-    vol = STREAMS * STREAM_WRITE * STREAM_ROUNDS
-    log(f"streaming set-up {st['setup_s']:.1f} s (the stream database, "
-        f"history {hreq} B, the extents); gc.freeze() after set-up")
-    warm, warm_s, warm_fams = st["warm"]
-    log(f"StreamSet warm pass: {warm_s:.3f} s, families {warm_fams}")
-    for k, (out, took, fams_, _ss, _h) in enumerate(st["passes"]):
-        log(f"StreamSet {STREAMS} x {STREAM_WRITE} B, pass {k}: "
-            f"{STREAM_ROUNDS} pipelined rounds in {took:.4f} s -> "
-            f"{vol / took / 1e9:.3f} GB/s of new bytes (upload inside the "
-            f"timed loop), families per round {fams_}, "
-            f"{sum(len(m) for rnd in out[2:] for m in rnd)} matches [{card}]")
-    log(f"StreamSet round stage seconds [{card}]: " + json.dumps(
-        {k: round(v, 6) for k, v in st["round_stages"].items()}))
-    sc_out, sc_times, _w = st["sc"]
-    log(f"scan_streams {SCAN_STREAMS} x {STREAM_WRITE} B: timed rounds "
-        f"{[round(t, 4) for t in sc_times]} s -> "
-        f"{SCAN_STREAMS * STREAM_WRITE / (sum(sc_times) / len(sc_times)) / 1e9:.3f}"
-        f" GB/s [{card}]")
-    host_n, host_s = st["host"]
-    log(f"scan_streams {HOST_STREAMS} x {STREAM_WRITE} B on the host path: "
-        f"{HOST_ROUNDS} rounds in {host_s:.3f} s -> "
-        f"{HOST_STREAMS * STREAM_WRITE * HOST_ROUNDS / host_s / 1e9:.3f} "
-        f"GB/s, {host_n} matches [{card}]")
-    e_out, e_times, _w = st["engine"]
-    log(f"bounded DFA streams {ENGINE_STREAMS} x {ENGINE_WRITE} B x "
-        f"{ENGINE_ROUNDS} rounds (kernel C entered in carried states): "
-        f"rounds {[round(t, 4) for t in e_times]} s -> "
-        f"{ENGINE_STREAMS * ENGINE_WRITE * ENGINE_ROUNDS / sum(e_times) / 1e9:.3f}"
-        f" GB/s, {sum(len(m) for rnd in e_out for m in rnd)} matches [{card}]")
+    merge(path_kernel_checks(torch, T, st["sdb"].lit,
+                             st["passes"][-1][3].dev_handle,
+                             "StreamSet round"))
+    merge({"dfa_scan": stream_dfa_checks(torch, st)})
+    out, fams_, _ss, _h = st["passes"][-1]
+    log(f"StreamSet {STREAMS} x {STREAM_WRITE} B, history {st['hreq']} B: "
+        f"families per pipelined round {fams_}, "
+        f"{sum(len(m) for rnd in out[2:] for m in rnd)} matches [{card}]")
     log(f"streaming checks: the first {CHECK_STREAMS} streams == host path "
         f"== block scans of their writes (matches {sn}), scan_streams(mesh=)"
         f" == unsharded on {list(st['mesh'])}, planted (StreamSet, "
@@ -3240,11 +2382,11 @@ def main() -> int:
     corpora = {kind: run[0] for kind, run in runs.items()}
     sp = som_path(torch, ht, T, corpora)
     glaunch = sp["launches"]
-    bfams = {kind: b[3] for kind, b in sp["block"].items()}
+    bfams = {kind: b[1] for kind, b in sp["block"].items()}
     som_fams = {f for fl in bfams.values() for fs in fl for f in fs}
     som_fams |= set(sp["stream_families"])
-    log(f"SOM-path launches: {glaunch}; families per scan (warm first) "
-        f"{bfams}, StreamSet {sp['stream_families']}")
+    log(f"SOM-path launches: {glaunch}; families per scan {bfams}, "
+        f"StreamSet {sp['stream_families']}")
     check(som_fams and all(glaunch[filters[f]] > 0 for f in som_fams),
           f"the SOM path's families {sorted(som_fams)} did not launch their "
           "filter kernels")
@@ -3259,91 +2401,21 @@ def main() -> int:
                         sp["bdb"].lit, MAIN_BYTES)
     check([h.family] == bfams[last][-1], f"SOM block {last}: dispatch "
           f"family {h.family} != the last scan's {bfams[last][-1]}")
-    merge(path_kernel_checks(torch, T, sp["bdb"].lit, h, clock_hz,
-                             f"SOM block scan ({last})")[0])
+    merge(path_kernel_checks(torch, T, sp["bdb"].lit, h,
+                             f"SOM block scan ({last})"))
     del h
     merge(path_kernel_checks(torch, T, sp["sdb"].lit,
-                             sp["passes"][-1][4].dev_handle, clock_hz,
-                             "SOM StreamSet round")[0])
-    for kind, (out, warm_s, times, fams_) in sp["block"].items():
-        log(f"SOM block {kind} ({len(sp['bdb'].patterns)} patterns, "
-            f"SOM_LEFTMOST): scan_batch {len(out)} matches; warm scan "
-            f"{warm_s:.3f} s; timed scans {[round(t, 4) for t in times]} s "
-            f"-> {MAIN_BYTES / (sum(times) / len(times)) / 1e9:.3f} GB/s end "
-            f"to end (upload inside the timed loop), families {fams_} "
-            f"[{card}]")
-    vol = SOM_STREAMS * STREAM_WRITE * SOM_ROUNDS
-    for k, (out, took, fams_, _ss, _h) in enumerate(sp["passes"]):
-        log(f"SOM StreamSet {SOM_STREAMS} x {STREAM_WRITE} B "
-            f"({len(sp['sdb'].patterns)} patterns, history {sp['hreq']} B),"
-            f" {'warm' if k == 0 else 'timed'} pass: {SOM_ROUNDS} pipelined "
-            f"rounds in {took:.4f} s -> {vol / took / 1e9:.3f} GB/s of new "
-            f"bytes, families per round {fams_}, "
-            f"{sum(len(m) for rnd in out[2:] for m in rnd)} matches [{card}]")
+                             sp["passes"][-1][3].dev_handle,
+                             "SOM StreamSet round"))
     del sp
     br = bench_reduced(T, dbs[100], sdb)
     log(f"bench at reduced depth: run_config(100, {BENCH_MB} MiB x "
-        f"{BENCH_ITERS}) {br['block_gb_s']:.3f} GB/s, {br['block_matches']} "
-        f"matches; run_streamset({BENCH_STREAMS} streams x {BENCH_ROUNDS} "
-        f"rounds) {br['stream_gb_s']:.3f} GB/s, {br['stream_matches']} "
-        f"matches; launches {br['launches']}; {br['s']:.1f} s [{card}]")
+        f"{BENCH_ITERS}) {br['block_matches']} matches; "
+        f"run_streamset({BENCH_STREAMS} streams x {BENCH_ROUNDS} rounds) "
+        f"{br['stream_matches']} matches; launches {br['launches']}")
     del sdb
     log(f"phase 3g {time.perf_counter() - t3g:.1f} s")
 
-    # phase 4: per-kernel times at the main path's shapes
-    kt = {}
-    for kind, (corpus, _out, _w, _t) in runs.items():
-        stages = breakdown(torch, T, db, corpus)
-        log(f"stage seconds {kind} [{card}]: "
-            + json.dumps({k: round(v, 6) for k, v in stages.items()}))
-        kt[kind] = kernel_times(torch, T, db, corpus, clock_hz)
-        r = kt[kind]
-        log(f"kernel times {kind} [{card}]: "
-            + json.dumps(r, sort_keys=True))
-        err_a = max(err_a, r["a"]["err"], r["a_bytes_tables"]["err"])
-        err_b = max(err_b, r["b"]["err"])
-    for route, (edb, _host) in edbs.items():
-        for shape in ("one_block", "blocks_16k"):
-            stages = engine_breakdown(torch, edb,
-                                      engine_blocks(ecorpus, shape))
-            log(f"engine stage seconds {route} {shape} [{card}]: "
-                + json.dumps({k: round(v, 6) for k, v in stages.items()}))
-    ekt = engine_kernel_times(torch, edbs, ecorpus, clock_hz)
-    for (route, shape), r in ekt.items():
-        log(f"engine kernel times {route} {shape} [{card}]: "
-            + json.dumps(r, sort_keys=True))
-        if r["kernel"] == "dfa_scan":
-            err_c = max(err_c, r["err"])
-        else:
-            err_d = max(err_d, r["err"])
-    # phase 4c: the family kernels at 512 MB (iid and structured),
-    # each against its plain version there too
-    ft_ = {}
-    for kind, (corpus, _out, _w, _t) in runs.items():
-        ft_[kind] = family_kernel_times(torch, T, db, corpus, clock_hz,
-                                        dense=kind == "iid")
-        log(f"family kernel times {kind} [{card}]: "
-            + json.dumps(ft_[kind], sort_keys=True))
-        for k, e in ft_[kind]["err"].items():
-            ferr[k] = max(ferr[k], e)
-    # phase 4d: kernel 7 and the batch DFA scan (kernel C's row mode)
-    mkt = multi_kernel_times(torch, T, db, runs, edbs, ecorpus, sh, clock_hz)
-    log(f"multi-device kernel times [{card}]: "
-        + json.dumps(mkt, sort_keys=True))
-    merr["words"] = max(merr["words"], mkt["err"]["words"])
-    merr["dfa_batch"] = max(merr["dfa_batch"], mkt["err"]["dfa_batch"])
-    # phase 4e: the stage probe of kernel 4 at 512 MiB iid
-    probe = stage_probe_times(torch, T, db, runs["iid"][0], clock_hz)
-    serr = max(serr, probe["err"])
-    pms = probe["ms"]
-    log(f"stage probe 512 MiB iid ({probe['candidates']} candidates, "
-        f"{probe['matches']} hash matches, end-to-end families "
-        f"{probe['families']}) [{card}]: " + "; ".join(
-            f"{k} {v:.3f} ms {MAIN_BYTES / v / 1e6:.2f} GB/s"
-            for k, v in pms.items()))
-    log(f"stage probe bounds and plain versions [{card}]: " + json.dumps(
-        {"bounds": probe["bounds"], "plain_ms": probe["plain_ms"],
-         "launches": probe["launches"]}, sort_keys=True))
     # phase 5: the differential tools on the card
     t5 = time.perf_counter()
     dt = differential_tools(T)
@@ -3357,160 +2429,36 @@ def main() -> int:
     t6 = time.perf_counter()
     chm = chimera_path(T)
     log(f"Chimera on the card: {chm['matches']} matches ({chm['plants']} "
-        f"planted) over {CHIMERA_BYTES} B equal the CPU's, ch_scan "
-        f"{chm['card_s']:.3f} s; launches {chm['launches']}; phase 6 "
-        f"{time.perf_counter() - t6:.1f} s")
+        f"planted) over {CHIMERA_BYTES} B equal the CPU's; launches "
+        f"{chm['launches']}; phase 6 {time.perf_counter() - t6:.1f} s")
     # phase 7: the feature surface at full width
     t7 = time.perf_counter()
-    fp = feature_path(torch, T, card, clock_hz)
+    fp = feature_path(torch, T, card)
     for r in fp["features"].values():
-        errs = dict(r["kernel_errs"])
-        err_c = max(err_c, errs.pop("dfa_scan", 0))
-        err_d = max(err_d, errs.pop("nfa_layered", 0))
-        merge(errs)
+        merge(r["kernel_errs"])
     log(f"feature-phase launches: {fp['launches']}; phase 7 "
         f"{time.perf_counter() - t7:.1f} s")
     # phase 8: the graft entry points and the per-kernel benches
     t8 = time.perf_counter()
     sf = surface_path(torch, T, db, clock_hz)
     log_surface(sf, card)
-    serrs = dict(sf["errs"])
-    merr["dfa_batch"] = max(merr["dfa_batch"], serrs.pop("dfa_batch"))
-    merr["words"] = max(merr["words"], serrs.pop("words"))
-    merge(serrs)
+    merge(sf["errs"])
+    key = {k[0]: k[3] for k in KERNELS}
     for r in sf["kbench"].values():
-        if r["kernel"] == "dfa_scan":
-            err_c = max(err_c, r["err"])
-        else:
-            err_d = max(err_d, r["err"])
+        merge({key[k]: e for k, e in r["err"].items()})
     log(f"phase-8 launches: {sf['launches']}; phase 8 "
         f"{time.perf_counter() - t8:.1f} s")
-    log("forced-family GB/s [" + card + "]: " + json.dumps(
-        {f"{k} {f}": round(v["gb_s"], 4) for (k, f), v in forced.items()}))
-    c = ekt[("bounded_dfa", "one_block")]
-    d = ekt[("acyclic_nfa", "one_block")]
-    r = kt["iid"]
-    fr = ft_["iid"]
 
-    def entry(name, source, replaces, err, t):
-        return {"name": name, "route": "cuda",
+    # phase 9: every kernel with its max abs error over every check of the
+    # run and its launches in each counted phase
+    launches.update(som=glaunch, bench=br["launches"],
+                    features=fp["launches"], surface=sf["launches"])
+    kernels = [{"name": name, "route": "cuda",
                 "source": f"hyperscan_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]}
-
-    kernels = [
-        {"name": "teddy_filter_compact", "route": "cuda",
-         "source": "hyperscan_tpu_torch/csrc/teddy_filter_compact.cu",
-         "replaces": "hyperscan_tpu/ops/teddy.py:1103",
-         "launches": launches["teddy_filter_compact"],
-         "max_abs_err": err_a, "ms": r["a"]["ms"],
-         "plain_ms": r["a"]["plain_ms"], "bound_ms": r["a"]["bound_ms"],
-         "bound_by": r["a"]["bound_by"], "library_ms": None},
-        {"name": "teddy_hash_confirm", "route": "cuda",
-         "source": "hyperscan_tpu_torch/csrc/teddy_hash_confirm.cu",
-         "replaces": "hyperscan_tpu/ops/teddy.py:1281",
-         "launches": launches["teddy_hash_confirm"],
-         "max_abs_err": err_b, "ms": r["b"]["ms"],
-         "plain_ms": r["b"]["plain_ms"], "bound_ms": r["b"]["bound_ms"],
-         "bound_by": r["b"]["bound_by"], "library_ms": None,
-         # the kernel's entry alone (no memset) and the launch floor (a
-         # list of -1s), beside the wrapper's `ms`
-         **{k: r["b"][k] for k in ("kernel_ms", "floor_ms",
-                                   "floor_kernel_ms")},
-         "structured": {k: kt["structured"]["b"][k] for k in (
-             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}},
-        {"name": "dfa_scan", "route": "cuda",
-         "source": "hyperscan_tpu_torch/csrc/dfa_scan.cu",
-         "replaces": "hyperscan_tpu/ops/dfa_kernel.py:132",
-         "launches": elaunch["dfa_scan"], "max_abs_err": err_c,
-         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-         "bound_by": c["bound_by"], "library_ms": None},
-        # kernel C's row mode: dfa_scan_batch of the sharded DFA path
-        {"name": "dfa_scan_rows", "route": "cuda",
-         "source": "hyperscan_tpu_torch/csrc/dfa_scan.cu",
-         "replaces": "hyperscan_tpu/ops/dfa.py:27",
-         "launches": mlaunch["dfa_scan_rows"],
-         "max_abs_err": merr["dfa_batch"],
-         "ms": mkt["dfa_batch"]["ms"], "plain_ms": mkt["dfa_batch"]["plain_ms"],
-         "bound_ms": mkt["dfa_batch"]["bound_ms"],
-         "bound_by": mkt["dfa_batch"]["bound_by"], "library_ms": None},
-        {"name": "nfa_layered", "route": "cuda",
-         "source": "hyperscan_tpu_torch/csrc/nfa_layered.cu",
-         "replaces": "hyperscan_tpu/ops/nfa_kernel.py:476",
-         "launches": elaunch["nfa_layered"], "max_abs_err": err_d,
-         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-         "bound_by": d["bound_by"], "library_ms": None,
-         # the other engines, 256 MiB as one block and as 16,384 blocks
-         "engines": {f"{name} {shape}": {
-             k: ekt[("acyclic_nfa", shape)]["engines"][name][k]
-             for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-             for name in NFA_ENGINES for shape in ("one_block",
-                                                   "blocks_16k")}},
-        entry("teddy_gate", "teddy_gate.cu",
-              "hyperscan_tpu/ops/teddy.py:1381", ferr["gate"], fr["gate"]),
-        entry("teddy_rescan_rows", "teddy_rescan_rows.cu",
-              "hyperscan_tpu/ops/teddy.py:1424", ferr["rescan"],
-              fr["rescan"]),
-        entry("teddy_kconfirm", "teddy_kconfirm.cu",
-              "hyperscan_tpu/ops/teddy.py:1081", ferr["kconfirm"],
-              fr["kconfirm"]),
-        entry("teddy_filter_plane", "teddy_filter_compact.cu",
-              "hyperscan_tpu/ops/teddy.py:1116", ferr["plane"], fr["plane"]),
-        entry("plane_extract", "plane_extract.cu",
-              "hyperscan_tpu/ops/teddy.py:793", ferr["extract"],
-              fr["extract"]),
-    ]
-    # the rescan over the structured corpus and the StreamSet round, the
-    # extraction over the structured and the dense plane
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    extra = {"teddy_rescan_rows": {"structured": ft_["structured"]["rescan"],
-                                   "streamset_round": rtimes},
-             "plane_extract": {"structured": ft_["structured"]["extract"],
-                               "dense": fr["extract_dense"]}}
-    for k in kernels:
-        for where, t in extra.get(k["name"], {}).items():
-            k[where] = {key: t[key] for key in keys if key in t}
-    for name, replaces, mode in (
-            ("teddy_words_count", "hyperscan_tpu/parallel/sharded.py:237",
-             "count"),
-            ("teddy_words_list", "hyperscan_tpu/ops/teddy.py:762", "list")):
-        t = mkt["iid"][mode]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "hyperscan_tpu_torch/csrc/teddy_words.cu",
-            "replaces": replaces, "launches": mlaunch[name],
-            "max_abs_err": merr["words"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            # the table reads of the class route beside the bound's
-            "lookups_read": t["lookups_read"]})
-    # row 11: stages 0-2 of kernel 4 on the stage probe's path; the entry
-    # gives stage 2's time and bound (the deepest stage mode), and each
-    # stage's under "stages"
-    kernels.append({
-        "name": "teddy_kconfirm_stage", "route": "cuda",
-        "source": "hyperscan_tpu_torch/csrc/teddy_kconfirm.cu",
-        "replaces": "tools_probe_rank_bisect.py:163, "
-                    "tools_probe_kconf_split.py:128",
-        "launches": probe["launches"]["teddy_kconfirm_stage"],
-        "max_abs_err": serr, "ms": pms["stage 2"],
-        "plain_ms": probe["plain_ms"]["stage 2"],
-        "bound_ms": probe["bounds"]["stage 2"]["bound_ms"],
-        "bound_by": probe["bounds"]["stage 2"]["bound_by"],
-        "library_ms": None,
-        "stages": {f"stage {s_}": {
-            "ms": pms[f"stage {s_}"],
-            "plain_ms": probe["plain_ms"][f"stage {s_}"],
-            **probe["bounds"][f"stage {s_}"]} for s_ in (0, 1, 2)}})
-    # the launches of 3g's SOM path, of its bench run, of phase 7 and of
-    # phase 8, beside the main path's
-    for k in kernels:
-        k["som_launches"] = glaunch.get(k["name"], 0)
-        k["bench_launches"] = br["launches"].get(k["name"], 0)
-        k["features_launches"] = fp["launches"].get(k["name"], 0)
-        k["surface_launches"] = sf["launches"].get(k["name"], 0)
+                "replaces": replaces, "max_abs_err": errs[k],
+                "launches": {ph: n.get(name, 0)
+                             for ph, n in launches.items()}}
+               for name, source, replaces, k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

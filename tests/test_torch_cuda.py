@@ -1236,16 +1236,35 @@ def test_graft_dryrun_on_card(card, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["bounded_dfa", "unbounded_dfa",
-                                   "cyclic_nfa", "acyclic_nfa"])
+                                   "cyclic_nfa", "acyclic_nfa", "dfa_rows",
+                                   "compact", "confirm", "plane", "kconfirm",
+                                   "gate", "rescan", "words"])
 def test_kernel_bench_on_card(card, route):
     """tools/kernel_bench.py on the card at a small size: each kernel
-    equal to its plain version, its record count equal to the CPU's."""
+    equal to its plain version and launched by the timed calls; what the
+    rows counted (records; candidates, pairs, rows, accepts) positive and
+    equal to the CPU's (but the random dense plane's). Each run gets a
+    database of its own, as the capacities it learns depend on what the
+    database has seen."""
+    from hyperscan_tpu_torch.tools import benchdata as BD
     from hyperscan_tpu_torch.tools import kernel_bench as KB
 
-    r = KB.bench_route(route, sizes_mb=(4,), reps=2)
-    assert r["err"] == 0 and r["launches"] == 3  # a warm-up call, 2 timed
-    c = KB.bench_route(route, sizes_mb=(4,), reps=1, device="cpu")
-    assert r["sizes"][4]["records"] == c["sizes"][4]["records"] > 0
+    pats, ids = BD.patterns(600)
+    r = KB.run_benches([route], sizes_mb=(4,), reps=2,
+                       db=ht.compile_multi(pats, ids=ids))[route]
+    assert set(r["err"].values()) == {0}
+    assert all(r["launches"][k] > 0 for k in r["err"])
+    if route in KB.ENGINE_SETS:  # a warm-up call, 2 timed
+        assert r["launches"] == {KB.ENGINE_SETS[route][3]: 3}
+    c = KB.run_benches([route], sizes_mb=(4,), reps=1, device="cpu",
+                       db=ht.compile_multi(pats, ids=ids))[route]
+
+    def counted(res):
+        return [(s["what"], s.get("records", s.get("count")))
+                for s in res["rows"] if "dense" not in s["what"]]
+
+    assert counted(r) == counted(c) and r["rows"]
+    assert all(n > 0 for _what, n in counted(r))
 
 
 @pytest.mark.cuda

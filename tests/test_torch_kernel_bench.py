@@ -6,10 +6,14 @@ on the CPU, where every kernel wrapper takes its plain version.
 - The four benches' databases have the tables of the JAX package's sets
   (tools_bench_kernels.py:19-22, :88-91, :152-155, :214), compiled as
   that file compiles them.
-- Each bench runs at 1 MiB: its kernel equals its plain version on the
-  block it times, and the end offsets of its records over the bench
-  corpus equal the ends of the JAX package's host-route scan of the same
-  bytes.
+- Each engine bench runs at 1 MiB: its kernel equals its plain version
+  on the block it times, and the end offsets of its records over the
+  bench corpus equal the ends of the JAX package's host-route scan of the
+  same bytes.
+- The batch-scan and literal benches run at 1 MiB (the literal ones with
+  a 600-pattern bench ruleset, structured and iid): each kernel equals
+  its plain version on the input it times, and each row gives its report
+  line.
 - The kconfirm bench at 1 MiB: both families' verified pairs are equal as
   sets, scan by scan, and equal the JAX package's host filter + confirm.
 Every value is an integer, so equality is exact.
@@ -89,10 +93,11 @@ def test_bench_runs_at_1mib_on_cpu(route):
     before = dict(LAUNCHES)
     r = KB.bench_route(route, sizes_mb=(1,), reps=1, device=CPU)
     assert dict(LAUNCHES) == before  # the plain versions: no launch
-    assert r["kernel"] == KB.ENGINE_SETS[route][3]
-    assert r["err"] == 0 and r["launches"] == 0
-    s = r["sizes"][1]
-    assert s["records"] > 0 and s["ms"] > 0
+    kernel = KB.ENGINE_SETS[route][3]
+    assert r["err"] == {kernel: 0} and r["launches"] == {kernel: 0}
+    (s,) = r["rows"]
+    assert s["kernel"] == kernel and s["mb"] == 1
+    assert s["records"] > 0 and s["ms"] > 0 and s["plain_ms"] > 0
     assert s["bound_ms"] == max(s["t_ops"], s["t_bytes"]) > 0
     # the records' end offsets against the reference's host-route scan
     corpus = KB.bench_corpus(route, 1 << 20, 1)
@@ -139,6 +144,33 @@ def kconf_db():
 
     pats, ids = BD.patterns(KCONF_PATTERNS)
     return ht.compile_multi(pats, ids=ids)
+
+
+@pytest.mark.parametrize("bench", ["dfa_rows", *KB.LIT_BENCHES])
+def test_kernel_benches_run_at_1mib_on_cpu(bench, kconf_db):
+    """The batch-scan and literal benches through the plain versions: each
+    kernel held to its plain version on the input it times (a difference
+    raises), a row a kernel and input, each with its report line."""
+    before = dict(LAUNCHES)
+    r = KB.run_benches([bench], sizes_mb=(1,), reps=1, device=CPU,
+                       db=kconf_db)[bench]
+    assert dict(LAUNCHES) == before  # the plain versions: no launch
+    kernels = ("dfa_scan_rows",) if bench == "dfa_rows" \
+        else KB.LIT_BENCHES[bench][1]
+    assert r["err"] == dict.fromkeys(kernels, 0)
+    assert r["launches"] == dict.fromkeys(kernels, 0)
+    assert {s["kernel"] for s in r["rows"]} == set(kernels)
+    if bench != "dfa_rows":
+        assert {s["kind"] for s in r["rows"]} == set(KB.LIT_KINDS)
+    for s in r["rows"]:
+        assert s["mb"] == 1 and s["ms"] > 0 and s["plain_ms"] > 0
+        assert s["count"] > 0
+        assert s["bound_ms"] > 0 and s["bound_by"] in ("bytes", "operations")
+    lines = KB.report({bench: r}, "cpu")
+    assert len(lines) == len(r["rows"])
+    assert all(line.startswith(f"{bench} (") and "bound" in line
+               and "plain version" in line
+               and "equal to the plain version" in line for line in lines)
 
 
 def test_kconf_bench_families_equal_on_cpu(kconf_db):

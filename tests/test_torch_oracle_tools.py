@@ -200,8 +200,7 @@ def test_tools_and_chimera_import_without_jax():
             " hyperscan_tpu_torch.tools.hscollider,"
             " hyperscan_tpu_torch.tools.fuzz,"
             " hyperscan_tpu_torch.tools.hsdump;"
-            "import tools_torch_kernel_ab, tools_torch_kernel_variants,"
-            " tools_torch_bench, tools_torch_diff_device_host,"
+            "import tools_torch_bench, tools_torch_diff_device_host,"
             " tools_torch_collider, hyperscan_tpu_torch.tools.bench")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)

@@ -1,6 +1,6 @@
 """Multi-card check of the port's sharded path: make_mesh() over every
-visible card against a one-card mesh, on chip_smoke.py's configurations
-(the 10k ruleset over 512 MiB as 1,024 blocks of 512 KiB, structured and
+visible card against a one-card mesh, at chip_smoke.py's widths (the 10k
+ruleset over 512 MiB as 1,024 blocks of 512 KiB, structured and
 iid; the bounded DFA over 16,384 x 16 KiB). The outputs must be equal;
 end-to-end times are printed beside the card's name and power limit.
 
@@ -15,22 +15,26 @@ import numpy as np
 import torch
 
 sys.path.insert(0, ".")
-import chip_smoke as C  # noqa: E402
 import hyperscan_tpu_torch as ht  # noqa: E402
 from hyperscan_tpu_torch import parallel as P  # noqa: E402
+from hyperscan_tpu_torch.tools.benchdata import (  # noqa: E402
+    gen_corpus, patterns)
+from hyperscan_tpu_torch.tools.kernel_bench import (  # noqa: E402
+    ENGINE_BLOCK, ENGINE_BYTES, MAIN_BYTES, SHARD_BLOCK, engine_blocks,
+    engine_db, nvidia_smi, plant_engines)
 
-card = C.nvidia_smi("name,power.limit")
+card = nvidia_smi("name,power.limit")
 print("cards", torch.cuda.device_count(), card, flush=True)
 from hyperscan_tpu_torch.ops import _build  # noqa: E402
 _build.build()
 cards, one = P.make_mesh(), P.make_mesh(1)
 print(cards, flush=True)
-pats, ids = C.patterns(10_000)
+pats, ids = patterns(10_000)
 db = ht.compile_multi(pats, ids=ids)
 for kind in ("structured", "iid"):
-    corpus = C.gen_corpus(C.MAIN_BYTES, 1, kind)
-    blocks = [corpus[i:i + C.SHARD_BLOCK]
-              for i in range(0, len(corpus), C.SHARD_BLOCK)]
+    corpus = gen_corpus(MAIN_BYTES, 1, kind)
+    blocks = [corpus[i:i + SHARD_BLOCK]
+              for i in range(0, len(corpus), SHARD_BLOCK)]
     want = ht.scan_batch(db, blocks)
     for name, m in (("1 card", one), ("4 cards", cards)):
         got = ht.scan_batch(db, blocks, mesh=m)
@@ -45,18 +49,17 @@ for kind in ("structured", "iid"):
         t_cnt = time.perf_counter() - t0
         print(f"{kind} {name}: scan_batch(mesh=) == unsharded, "
               f"{sum(map(len, got))} matches, timed {times} s -> "
-              f"{C.MAIN_BYTES / np.mean(times) / 1e9:.3f} GB/s; "
+              f"{MAIN_BYTES / np.mean(times) / 1e9:.3f} GB/s; "
               f"sharded_teddy_count {cnt} in {t_cnt:.3f} s [{card}]",
               flush=True)
         if name == "1 card":
             cnt1 = cnt
         else:
             assert cnt == cnt1
-edbs = C.engine_dbs(ht)
-eng = edbs["bounded_dfa"][0].engines[0]
-ecorpus = C.gen_engine_corpus(C.ENGINE_BYTES, 5)
-eblocks = C.engine_blocks(ecorpus, "blocks_16k")
-data, lengths = P.pad_batch_for_mesh(eblocks, cards, C.ENGINE_BLOCK)
+eng = engine_db("bounded_dfa").engines[0]
+ecorpus = plant_engines(gen_corpus(ENGINE_BYTES, 5, "iid"))
+eblocks = engine_blocks(ecorpus, "blocks_16k")
+data, lengths = P.pad_batch_for_mesh(eblocks, cards, ENGINE_BLOCK)
 out = {}
 for name, m in (("1 card", one), ("4 cards", cards)):
     t0 = time.perf_counter()
