@@ -362,11 +362,12 @@ def somnfa_scan_batch_native(engine, data, lengths, init_states,
 
 
 def _confirm_c_tables(lit):
-    """Pack the confirm index (lit_runtime._confirm_index) plus factor
-    atom tables into flat C arrays, cached on the lit object."""
+    """Pack the confirm index (lit_runtime._confirm_index) plus the
+    factor atom tables (lit_runtime._atom_tables) into flat C arrays,
+    cached on the lit object."""
     if hasattr(lit, "_confirm_c"):
         return lit._confirm_c
-    from ..runtime.lit_runtime import _confirm_index
+    from ..runtime.lit_runtime import _atom_tables, _confirm_index
 
     packed, flen_arr = _confirm_index(lit)
     G = len(packed)
@@ -382,15 +383,8 @@ def _confirm_c_tables(lit):
                 else np.zeros(0, np.uint64)).astype(np.uint64)
     grp_fids = (np.concatenate(fids_l) if fids_l
                 else np.zeros(0, np.int64)).astype(np.int64)
-    F = len(lit.factor_atoms)
-    atom_off = np.zeros(F + 1, np.int64)
-    av_l, am_l = [], []
-    for fid, atoms in enumerate(lit.factor_atoms):
-        av_l.append(np.asarray([v for (v, _m) in atoms], np.uint8))
-        am_l.append(np.asarray([m for (_v, m) in atoms], np.uint8))
-        atom_off[fid + 1] = atom_off[fid] + len(atoms)
-    atom_vals = (np.concatenate(av_l) if av_l else np.zeros(0, np.uint8))
-    atom_masks = (np.concatenate(am_l) if am_l else np.zeros(0, np.uint8))
+    atom_vals, atom_masks, off, _flen, _width = _atom_tables(lit)
+    atom_off = np.append(off, atom_vals.size)
     lit._confirm_c = (
         G,
         np.ascontiguousarray(grp_cl),

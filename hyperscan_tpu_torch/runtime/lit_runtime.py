@@ -23,6 +23,7 @@ from typing import Dict, List, Sequence, Set, Tuple
 
 import numpy as np
 
+from ..compiler.literals import MAX_FACTOR_LEN
 from ..trace import count, spanned
 
 Record = Tuple[int, int, int, int]  # (block_idx, expr_idx, to_local, from_local)
@@ -192,32 +193,77 @@ def expand_confirm_classes(
     return fids[idx], np.repeat(pos_a, counts)
 
 
+def _atom_tables(lit):
+    """Every factor's atoms packed end to end (cached): `value & mask`
+    and `mask` as two flat uint8 arrays, each factor's offset into them,
+    its length, and its width class: the smallest power of two that
+    holds it, from the compiler's factor cap up, so that a compiled
+    database's factors all share one class."""
+    if hasattr(lit, "_atom_tab"):
+        return lit._atom_tab
+    _packed, flen_arr = _confirm_index(lit)
+    off = np.zeros(len(flen_arr), dtype=np.int64)
+    np.cumsum(flen_arr[:-1], out=off[1:])
+    n = int(flen_arr.sum())
+    vm = np.fromiter(
+        itertools.chain.from_iterable(
+            itertools.chain.from_iterable(lit.factor_atoms)),
+        dtype=np.uint8, count=2 * n,
+    ).reshape(n, 2)
+    width = np.full(len(flen_arr), 1 << (MAX_FACTOR_LEN - 1).bit_length(),
+                    dtype=np.int64)
+    while (width < flen_arr).any():
+        width = np.where(width < flen_arr, width * 2, width)
+    lit._atom_tab = (vm[:, 0] & vm[:, 1], vm[:, 1].copy(), off, flen_arr,
+                     width)
+    return lit._atom_tab
+
+
+def _atoms_match(
+    lit, corpus: np.ndarray, fid_a: np.ndarray, p_a: np.ndarray,
+) -> np.ndarray:
+    """Whether factor fid_a[i]'s (value, mask) atoms match the corpus
+    bytes that end at flat position p_a[i] (the factor must start inside
+    the corpus). One gather and compare for each width class present,
+    whatever the number of distinct factors: each pair's right-aligned
+    window of the class width against its factor's slice of the flat
+    tables, the bytes before the factor masked out."""
+    vm, mm, off, flen_arr, width = _atom_tables(lit)
+    ok = np.ones(len(fid_a), dtype=bool)
+    wp = width[fid_a]
+    classes = np.unique(wp).tolist()
+    for w in classes:
+        sel = (slice(None) if len(classes) == 1
+               else np.flatnonzero(wp == w))
+        f, p = fid_a[sel], p_a[sel]
+        ar = np.arange(w)
+        t = (off[f] + flen_arr[f] - w)[:, None] + ar  # table index
+        pre = t < off[f][:, None]  # columns before the factor
+        t = np.maximum(t, 0)
+        win = corpus[np.maximum(p[:, None] - (w - 1) + ar, 0)]
+        ok[sel] = np.all((((win ^ vm[t]) & mm[t]) == 0) | pre, axis=1)
+        count("verify_passes")
+    return ok
+
+
 @spanned("hs.verify")
 def verify_pairs(
     lit, corpus: np.ndarray, block_starts: np.ndarray,
     fid_a: np.ndarray, p_a: np.ndarray,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact host verification of device hash-confirmed (fid, pos)
-    pairs: full (value, mask) atom compare + block containment."""
+    pairs: block containment + full (value, mask) atom compare. The
+    pairs that pass keep their input order."""
+    count("verify_pairs", int(fid_a.size))
     if fid_a.size == 0:
         return fid_a, p_a
-    _packed, flen_arr = _confirm_index(lit)
+    flen_arr = _atom_tables(lit)[3]
     blk = np.searchsorted(block_starts, p_a, side="right") - 1
     keep = (p_a - flen_arr[fid_a] + 1) >= block_starts[blk]
     fid_a, p_a = fid_a[keep], p_a[keep]
     if fid_a.size == 0:
         return fid_a, p_a
-    good = np.ones(len(fid_a), dtype=bool)
-    for fid in np.unique(fid_a):
-        atoms = lit.factor_atoms[fid]
-        flen = len(atoms)
-        m = fid_a == fid
-        ps = p_a[m]
-        win = corpus[ps[:, None] - flen + 1 + np.arange(flen)[None, :]]
-        va = np.asarray([v for (v, _m) in atoms], np.uint8)
-        ma = np.asarray([mm for (_v, mm) in atoms], np.uint8)
-        good[np.flatnonzero(m)[~np.all((win & ma) == (va & ma), axis=1)]] \
-            = False
+    good = _atoms_match(lit, corpus, fid_a, p_a)
     return fid_a[good], p_a[good]
 
 
@@ -283,19 +329,10 @@ def confirm_candidates(
             f_sel, p_sel = f_sel[okb], p_sel[okb]
             if long_tail:
                 # factors longer than the 8-byte tail: verify the rest
-                for fid in np.unique(f_sel[flen_arr[f_sel] > 8]):
-                    atoms = lit.factor_atoms[fid]
-                    flen = len(atoms)
-                    m = f_sel == fid
-                    ps = p_sel[m]
-                    win = corpus[ps[:, None] - flen + 1
-                                 + np.arange(flen)[None, :]]
-                    va = np.asarray([v_ for (v_, _m) in atoms], np.uint8)
-                    ma = np.asarray([m_ for (_v, m_) in atoms], np.uint8)
-                    hit = np.all((win & ma) == va, axis=1)
-                    drop = np.flatnonzero(m)[~hit]
+                lt = np.flatnonzero(flen_arr[f_sel] > 8)
+                if lt.size:
                     keep = np.ones(len(f_sel), dtype=bool)
-                    keep[drop] = False
+                    keep[lt] = _atoms_match(lit, corpus, f_sel[lt], p_sel[lt])
                     f_sel, p_sel = f_sel[keep], p_sel[keep]
             out_f.append(f_sel)
             out_p.append(p_sel)

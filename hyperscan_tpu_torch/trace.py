@@ -42,6 +42,14 @@ Counters, raised once per stage and never per match, flow or block:
   each over every chain expression at once (a forward pass over the
   windows, a reverse pass from the role matches): two a call at most,
   whatever `chain_exprs` reads;
+- `COUNTS["verify_pairs"]`: the device-confirmed (fid, pos) pairs handed
+  to `runtime.lit_runtime.verify_pairs`, raised once a call;
+- `COUNTS["verify_passes"]`: the exact atom compares run
+  (`lit_runtime._atoms_match`, from `verify_pairs` and the host route's
+  long-tail confirm), one for each width class of factor length present
+  in a call, whatever the number of distinct factors: one a call for a
+  compiled database, whose factors are 16 bytes at most
+  (`compiler.literals.MAX_FACTOR_LEN`);
 - `COUNTS["exchanges"]`: the exchanges over a mesh's process group
   (`parallel.sharded._exchange`), one a sharded call on several
   processes;
@@ -68,7 +76,8 @@ import torch
 from torch.autograd import profiler as _profiler
 
 COUNTS: Dict[str, int] = {"redispatches": 0, "chain_exprs": 0,
-                          "chain_passes": 0, "exchanges": 0,
+                          "chain_passes": 0, "verify_pairs": 0,
+                          "verify_passes": 0, "exchanges": 0,
                           "exchange_bytes": 0, "stitch_pinned": 0}
 
 _lock = threading.Lock()
