@@ -7,9 +7,11 @@
 For each seed, one line of JSON on standard output: the numbers that a
 run compares (`missing`, `extra`; limit 0 each) read over the sample a
 run draws, for the program and for the control of the cell's
-configuration (`harness/control.py`: the reference with one stated
-guarantee broken). The program runs in this one process, loaded once,
-with a short window of `--seconds` per seed at the cell's own load.
+configuration (`cfg["control"]`, one of the `CONTROLS` of the reference
+that `cfg["reference"]` names: the reference with one stated guarantee
+broken; `harness/control.py`). The program runs in this one process,
+loaded once, with a short window of `--seconds` per seed at the cell's
+own load.
 With `--calls N` the program does not run: the sample is that of a run
 of N calls (rounds, for flows), and only the control is read; that is
 how a cell on four cards gets its control's readings on one.
@@ -51,7 +53,6 @@ def main(argv=None) -> int:
     cell = spec.cell(args.workload)
     cfg = spec.config(cell["config"])
     mix = spec.traffic(cell["traffic"])
-    n = cfg["ruleset"]["patterns"]
     flows = mix["kind"] == "flows"
     ht = db = None
     if args.calls is None:
@@ -59,7 +60,7 @@ def main(argv=None) -> int:
 
         db = dbcache.load(ht, cfg, lambda m: print(m, file=sys.stderr))
     for seed in args.seeds:
-        tr = T.make(mix, seed, n, cell["chips"])
+        tr = T.make(mix, seed, cfg["ruleset"], cell["chips"])
         loop = (FlowLoop if flows else BlockLoop)(ht, db, tr, seed,
                                                    device=args.device)
         line = {"workload": args.workload, "seed": seed}
@@ -73,8 +74,8 @@ def main(argv=None) -> int:
             ph = run_phase(loop, Agree(), args.seconds)
             loop.close()
             line["calls"] = ph.calls
-            line["program"] = _reading(loop.check(n))
-        line["control"] = _reading(control.check(loop, cfg, n))
+            line["program"] = _reading(loop.check(cfg))
+        line["control"] = _reading(control.check(loop, cfg))
         print(json.dumps(line), flush=True)
     return 0
 

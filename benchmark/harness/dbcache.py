@@ -16,8 +16,7 @@ import os
 import pathlib
 import time
 
-from formulas import benchdata as BD
-
+from . import spec
 from .spec import BENCH, PORT
 
 CACHE = BENCH / "cache" / "db"
@@ -25,12 +24,10 @@ SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cpp", ".h")
 
 
 def ruleset(cfg: dict):
-    """(patterns, ids, flags) of a configuration's ruleset."""
+    """(patterns, ids, flags) of a configuration's ruleset, from the
+    module that its `ruleset.formula` names."""
     rs = cfg["ruleset"]
-    if rs["formula"] != "bench":
-        raise ValueError(f"unknown ruleset formula {rs['formula']!r}")
-    pats, ids = BD.patterns(rs["patterns"])
-    return pats, ids, [rs["flags"]] * len(pats)
+    return spec.ruleset(rs).rules(rs)
 
 
 def port_sources(port: pathlib.Path = PORT) -> list:

@@ -10,6 +10,9 @@ sample of their answers that the reference checks after the window.
   its start to the return of its finish. After the window the streams
   are closed (`close_streamset`) and their EOD matches join the answers.
 
+The check holds the sample to the configuration's plain reference, the
+module that `cfg["reference"]` names (spec.py), over its ruleset.
+
 A phase runs steps until its deadline, then drains what is in flight,
 so every call counted in a phase started and ended in it. With a
 process group, every rank takes the same number of steps: after each
@@ -27,8 +30,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from reference import snort_rules as R
-
+from . import spec
 from .traffic import Blocks, Flows, rng_for
 
 
@@ -202,14 +204,15 @@ class BlockLoop:
     def close(self) -> None:
         pass
 
-    def check(self, n_patterns: int, answer=None) -> Check:
+    def check(self, cfg: dict, answer=None) -> Check:
         """The sampled calls' answers against the reference: in each
         sampled call, `blocks_per_call` blocks drawn from the seed.
-        `answer(want)`, if given, stands in for the program's answer
+        `answer(data, rs)`, if given, stands in for the program's answer
         (the control)."""
+        R, rs = spec.reference(cfg), cfg["ruleset"]
         rng = rng_for(self.seed, "blocks")
         per = self.t.check["blocks_per_call"]
-        memo: Dict[tuple, list] = {}
+        memo: Dict[tuple, tuple] = {}
         ck = Check()
         for i, out in sorted(self.sample.items, key=lambda x: x[0]):
             b = i % len(self.t.pool)
@@ -218,9 +221,11 @@ class BlockLoop:
                      sorted(rng.choice(len(batch), per, replace=False)))
             for j in picks:
                 if (b, j) not in memo:
-                    memo[(b, j)] = R.block_matches(batch[j], n_patterns)
-                want = memo[(b, j)]
-                ck.add(out[j] if answer is None else answer(want), want)
+                    memo[(b, j)] = (
+                        R.block_matches(batch[j], rs),
+                        None if answer is None else answer(batch[j], rs))
+                want, stand_in = memo[(b, j)]
+                ck.add(out[j] if answer is None else stand_in, want)
         return ck
 
 
@@ -303,25 +308,25 @@ class FlowLoop:
             out = self.SS.close_streamset(self.db, self.ss)
         self.closed = {k: out[k] for k in self.flows}
 
-    def check(self, n_patterns: int, answer=None) -> Check:
+    def check(self, cfg: dict, answer=None) -> Check:
         """Each sampled flow's matches, round by round and at the close,
-        against the reference over the flow's whole stream. `answer(want,
-        data)`, if given, stands in for the program's matches of a round
-        (the control); the ruleset has no match at the end of data, so
-        the close must deliver none."""
+        against the reference over the flow's whole stream: the rounds'
+        and the close's matches that it gives. `answer(data, rs, write)`,
+        if given, stands in for the program's matches (the control)."""
+        R, rs = spec.reference(cfg), cfg["ruleset"]
         ck = Check()
         w = self.t.write
         for k in self.flows:
             data = self.t.stream(k, self.r)
-            want = R.stream_matches(data, n_patterns, w)
-            got: Dict[int, list] = {}
-            for r, m in self.got[k]:
-                got.setdefault(r, []).append(m)
+            want, want_close = R.stream_matches(data, rs, w)
+            if answer is None:
+                got: Dict[int, list] = {}
+                for r, m in self.got[k]:
+                    got.setdefault(r, []).append(m)
+                got_close = self.closed.get(k, [])
+            else:
+                got, got_close = answer(data, rs, w)
             for r in sorted(set(want) | set(got)):
-                if answer is not None:
-                    g = answer(want.get(r, []), data, r)
-                else:
-                    g = got.get(r, [])
-                ck.add(g, want.get(r, []))
-            ck.add([] if answer is not None else self.closed.get(k, []), [])
+                ck.add(got.get(r, []), want.get(r, []))
+            ck.add(got_close, want_close)
         return ck

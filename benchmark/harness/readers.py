@@ -11,19 +11,28 @@ from .peaks import HBM_BYTES_PER_S
 GIB = float(1 << 30)
 
 
-def gbps(run, kind: str):
-    """Bytes handed to the program in the window over its seconds."""
-    w = run.window
+def gbps(run, kind: str, phase: str = "window"):
+    """Bytes handed to the program in a phase (the untraced window, or the
+    traced half of a traced run) over its seconds."""
+    w = getattr(run, phase)
     if run.kind != kind or w is None or w.seconds <= 0:
         return None
     return w.bytes / w.seconds / 1e9
 
 
-def p95_ms(run):
-    w = run.window
-    if w is None or not w.latencies:
+def p95_ms(run, phase: str = "window", kind=None):
+    w = getattr(run, phase)
+    if (kind is not None and run.kind != kind) or w is None \
+            or not w.latencies:
         return None
     return float(np.percentile(np.asarray(w.latencies), 95)) * 1e3
+
+
+def card_bytes_per_flow(run):
+    """The fullest card's allocated peak over the streams held open."""
+    if run.kind != "stream" or not run.flows or run.peak_bytes <= 0:
+        return None
+    return run.peak_bytes / run.flows
 
 
 def idle_pct(run, kind: str):

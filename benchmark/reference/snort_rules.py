@@ -1,5 +1,6 @@
-"""Plain reference for the bench ruleset: every match (id, 0, to) of the
-first n patterns of `formulas.benchdata.patterns` in a byte string, by
+"""Plain reference for the bench ruleset (`rulesets/bench.py`): every
+match (id, 0, to) of the first `rs["patterns"]` patterns of
+`formulas.benchdata.patterns` in a byte string, by
 Hyperscan's semantics without SOM_LEFTMOST: each pattern reports every
 end offset at which some match of it ends, once, with `from` 0 and `to`
 one past the match's last byte.
@@ -89,9 +90,10 @@ def _tail_ends(data: bytes, i: int, q: int, run_end: int) -> List[int]:
             return ends
 
 
-def block_matches(data: bytes, n_patterns: int) -> List[Match]:
-    """Every match of the first n_patterns patterns in `data`, sorted by
-    (to, id)."""
+def block_matches(data: bytes, rs: dict) -> List[Match]:
+    """Every match of the first rs["patterns"] patterns in `data`, sorted
+    by (to, id)."""
+    n_patterns = rs["patterns"]
     out = set()
     for m in _ANCHOR.finditer(data):
         head, digits = m.group(1), m.group(2)
@@ -109,35 +111,42 @@ def block_matches(data: bytes, n_patterns: int) -> List[Match]:
     return [(i, 0, to) for to, i in sorted(out)]
 
 
-def stream_matches(data: bytes, n_patterns: int, write: int):
+def stream_matches(data: bytes, rs: dict, write: int):
     """The matches of a stream whose bytes are `data`, written `write`
-    bytes a round, by round: {round: sorted matches}, a match belonging
-    to the round whose write holds its last byte (the same semantics as
-    scanning the whole stream as one block, which holds for this
-    ruleset: no pattern is anchored or asserts at the end of data)."""
+    bytes a round: ({round: sorted matches}, the close's matches), a
+    match belonging to the round whose write holds its last byte (the
+    same semantics as scanning the whole stream as one block, which holds
+    for this ruleset: no pattern is anchored or asserts at the end of
+    data, so the close delivers none)."""
     out = {}
-    for m in block_matches(data, n_patterns):
+    for m in block_matches(data, rs):
         out.setdefault((m[2] - 1) // write, []).append(m)
-    return out
+    return out, []
 
 
-def single_match(matches: List[Match]) -> List[Match]:
-    """The control: the same matches under a broken guarantee, each
-    pattern reported once, at its first end (as HS_FLAG_SINGLEMATCH would;
-    the configuration states that every end is reported)."""
+def single_match(data: bytes, rs: dict) -> List[Match]:
+    """The block control: the block's matches under a broken guarantee,
+    each pattern reported once, at its first end (as HS_FLAG_SINGLEMATCH
+    would; the configuration states that every end is reported)."""
     seen, out = set(), []
-    for m in matches:
+    for m in block_matches(data, rs):
         if m[0] not in seen:
             seen.add(m[0])
             out.append(m)
     return out
 
 
-def write_alone(data: bytes, r: int, write: int,
-                n_patterns: int) -> List[Match]:
-    """The stream control: round r's matches with the write scanned by
+def write_alone(data: bytes, rs: dict, write: int):
+    """The stream control: each round's matches with its write scanned by
     itself, no history and no carried state (the configuration states
-    that matches across write boundaries are found)."""
-    base = r * write
-    return [(i, f, base + to) for (i, f, to)
-            in block_matches(data[base:base + write], n_patterns)]
+    that matches across write boundaries are found); the close's none."""
+    out = {}
+    for base in range(0, len(data), write):
+        ms = [(i, f, base + to) for (i, f, to)
+              in block_matches(data[base:base + write], rs)]
+        if ms:
+            out[base // write] = ms
+    return out, []
+
+
+CONTROLS = {"single_match": single_match, "write_alone": write_alone}

@@ -5,13 +5,15 @@
         --trace <0|1>
 
 The cell (`BENCHMARK.json` `workloads`) names a configuration
-(`benchmark/configs/<name>.json`: the ruleset, the mode) and a traffic mix
-(`benchmark/traffic/<name>.json`). The run loads the configuration's
-database (compiled once per checkout, `harness/dbcache.py`), makes the
-traffic from the seed, warms up, then drives the program's public scan
-calls in a closed loop for `--seconds` and prints, as the last line of
-standard output, one JSON object: `correct`, `attempted`, `failed`,
-`metrics`, `device`, with `--trace 1` `breakdown`, and last `checks`.
+(`benchmark/configs/<name>.json`: the ruleset, the mode, the reference
+and the control) and a traffic mix (`benchmark/traffic/<name>.json`);
+every file is found by name (`harness/spec.py`). The run loads the
+configuration's database (compiled once per checkout,
+`harness/dbcache.py`), makes the traffic from the seed, warms up, then
+drives the program's public scan calls in a closed loop for `--seconds`
+and prints, as the last line of standard output, one JSON object:
+`correct`, `attempted`, `failed`, `metrics`, `device`, with `--trace 1`
+`breakdown`, and last `checks`.
 
 With `--trace 0` the metrics are the cell's end-to-end metrics; with
 `--trace 1` the window is run in two halves, the first under
@@ -20,8 +22,9 @@ time by layer), and the metrics are the cell's per-layer ones. Every
 metric is read by its own file, `benchmark/metrics/<name>.py`.
 
 After the window a sample of the answers, drawn from the seed, is held to
-the plain reference (`benchmark/reference/`): every match (id, from, to)
-of a sampled block, or of a sampled flow round by round and at its close.
+the configuration's plain reference (its `reference`, under
+`benchmark/reference/`): every match (id, from, to) of a sampled block,
+or of a sampled flow round by round and at its close.
 
 A cell on 4 cards runs one process per card: this process is rank 0 and
 starts the other ranks (this script with `--rank`), which join one
@@ -76,14 +79,25 @@ def banned_modules() -> list:
                   & set(BANNED))
 
 
+def refuse_banned() -> None:
+    """End the run, with no result, if a module that no run may hold is
+    loaded."""
+    found = banned_modules()
+    if found:
+        raise SystemExit(f"modules that no run may load are loaded: {found}")
+
+
 class Run:
     """What the metric readers read: the phases, the device trace and the
     host time by layer of one run."""
 
-    def __init__(self, kind: str, chips: int, setup_s: float):
+    def __init__(self, kind: str, chips: int, setup_s: float,
+                 flows: int = 0):
         self.kind = kind
         self.chips = chips
         self.setup_s = setup_s
+        self.flows = flows  # the streams a flows loop holds open
+        self.peak_bytes = 0  # the fullest card's allocated peak
         self.window = None  # loops.Phase of an untraced run
         self.traced = None  # the first half of a traced run
         self.profiled = None  # its second half
@@ -182,6 +196,8 @@ def run_cell(args, rank: int, port, device_kind: str = "cuda"):
     cfg = spec.config(cell["config"])
     mix = spec.traffic(cell["traffic"])
     chips = cell["chips"]
+    # the reference and its control load in set-up, before the window
+    spec.reference(cfg).CONTROLS[cfg["control"]]
     import hyperscan_tpu_torch as ht
 
     device = torch.device(device_kind, rank) if device_kind == "cuda" \
@@ -199,8 +215,7 @@ def run_cell(args, rank: int, port, device_kind: str = "cuda"):
         agree = Agree(dist.new_group(backend="gloo"))
         log(f"rank {rank}: mesh {mesh}")
     db = dbcache.load(ht, cfg, log)
-    n_patterns = cfg["ruleset"]["patterns"]
-    tr = T.make(mix, args.seed, n_patterns, chips)
+    tr = T.make(mix, args.seed, cfg["ruleset"], chips)
     if mix["kind"] == "blocks":
         loop = BlockLoop(ht, db, tr, args.seed, device=device, mesh=mesh,
                          digest=mesh is not None)
@@ -210,7 +225,7 @@ def run_cell(args, rank: int, port, device_kind: str = "cuda"):
     gc.collect()
     gc.freeze()  # the set-up's objects leave the cyclic collector's scans
     setup_s = time.perf_counter() - T0
-    run = Run(loop.kind, chips, setup_s)
+    run = Run(loop.kind, chips, setup_s, getattr(tr, "flows", 0))
     if args.trace:
         layers = spec.Layers()
         run.traced, run.profiled, run.trace, run.host = traced_window(
@@ -227,9 +242,7 @@ def run_cell(args, rank: int, port, device_kind: str = "cuda"):
             f"{[round(r / 1e9, 4) for r in run.window.rates()]}")
         phases = [run.window]
     gc.unfreeze()
-    found = banned_modules()
-    if found:
-        raise SystemExit(f"modules that no run may load are loaded: {found}")
+    refuse_banned()
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     loop.close()
@@ -253,18 +266,19 @@ def run_cell(args, rank: int, port, device_kind: str = "cuda"):
         P.close_multihost_mesh()
         if rank != 0:
             return None
-    return finish(args, cell, cfg, run, loop, n_patterns, attempted,
-                  digests, max(peaks), busy, chips, torch, device)
+    return finish(args, cell, cfg, run, loop, attempted, digests,
+                  max(peaks), busy, chips, torch, device)
 
 
-def finish(args, cell, cfg, run, loop, n_patterns, attempted, digests,
-           peak, busy, chips, torch, device):
+def finish(args, cell, cfg, run, loop, attempted, digests, peak, busy,
+           chips, torch, device):
     """Rank 0: the reference check, the metrics and the result line."""
     from harness import spec
 
     log(f"card: {card_power()}")
     t0 = time.perf_counter()
-    ck = loop.check(n_patterns)
+    run.peak_bytes = peak
+    ck = loop.check(cfg)
     log(f"reference check: {ck.answers} answers, {ck.compared} matches "
         f"in {time.perf_counter() - t0:.3f} s")
     checks = {"missing": {"value": ck.missing, "limit": 0},
@@ -299,6 +313,7 @@ def finish(args, cell, cfg, run, loop, n_patterns, attempted, digests,
              for k, v in checks.items()]
     lines.append(f"check answers compared: {ck.answers}, matches in the "
                  f"reference: {ck.compared} (must be above 0)")
+    refuse_banned()  # what the check and the metric readers loaded too
     return out, lines
 
 

@@ -7,6 +7,10 @@ from formulas import benchdata as BD
 from reference import snort_rules as R
 
 
+def _rs(n: int) -> dict:
+    return {"formula": "bench", "patterns": n, "flags": 0}
+
+
 def test_no_program_in_reference():
     import reference.snort_rules as mod
 
@@ -19,7 +23,7 @@ def test_block_plants():
     each of attack0 (0), v4.exe (4), gate5...end (5), gate11...end (11);
     the other plants spell no rule of the ruleset."""
     block = BD.gen_corpus(1 << 16, 3, "structured").tobytes()
-    got = R.block_matches(block, 10000)
+    got = R.block_matches(block, _rs(10000))
     want = []
     for off, p in BD.plant_starts():
         pid = {b"attack0 ": 0, b"v4.exe ": 4,
@@ -38,7 +42,8 @@ def test_stream_plants():
     plants = BD.stream_plants(n, rounds * w)
     for k in range(n):
         data = b"".join(e[k].tobytes() for e in ext)
-        by_round = R.stream_matches(data, 10000, w)
+        by_round, close = R.stream_matches(data, _rs(10000), w)
+        assert close == []
         ends = {m[2] for ms in by_round.values() for m in ms
                 if m[0] == 0}
         assert ends == {t for (s, t) in plants if s == k}
@@ -69,16 +74,19 @@ def test_reference_equals_program():
     pats, ids = BD.patterns(n)
     db = ht.compile_multi(pats, [0] * n, ids, ht.HS_MODE_BLOCK)
     data = _dense(n, np.random.default_rng(4))
-    want = R.block_matches(data, n)
+    want = R.block_matches(data, _rs(n))
     assert len(want) > 1000
     assert sorted(ht.scan_batch(db, [data], device="cpu")[0]) == sorted(want)
 
 
 def test_controls_break_the_guarantee():
     block = BD.gen_corpus(1 << 16, 3, "structured").tobytes()
-    full = R.block_matches(block, 10000)
-    assert len(R.single_match(full)) == 4 < len(full)
+    full = R.block_matches(block, _rs(10000))
+    assert len(R.single_match(block, _rs(10000))) == 4 < len(full)
     # a plant across the write boundary: the write alone misses it
     data = b"x" * 1456 + b"attack0 " + b"y" * 1456
-    assert R.stream_matches(data, 10, 1460) == {1: [(0, 0, 1463)]}
-    assert R.write_alone(data, 1, 1460, 10) == []
+    assert R.stream_matches(data, _rs(10), 1460) == ({1: [(0, 0, 1463)]},
+                                                    [])
+    assert R.write_alone(data, _rs(10), 1460) == ({}, [])
+    assert R.CONTROLS == {"single_match": R.single_match,
+                          "write_alone": R.write_alone}

@@ -24,6 +24,7 @@ BLOCK, STREAM, IMIX, X4 = ("snort10k_block.bulk1m",
                            "snort10k_block.imix4k",
                            "snort10k_block_x4.bulk1m")
 SEED = 2**31 + 7
+CARD_ONLY = {"card_bytes_per_flow"}  # the card's memory, read on a card
 
 
 def _free_port() -> int:
@@ -66,10 +67,33 @@ def test_last_line(cell, trace, cache):
     want = {m["name"]: m["unit"] for m in spec.metrics_of(cell, trace)}
     got = {k: v["unit"] for k, v in out["metrics"].items()}
     assert set(got) <= set(want) and all(want[k] == u for k, u in got.items())
-    if not trace:  # the device metrics read nothing on the CPU
-        assert set(got) == set(want)
+    if not trace:  # the device metrics read nothing on the CPU, nor
+        # the card's memory
+        assert set(got) == set(want) - CARD_ONLY
     for c in out["checks"].values():
         assert c["value"] == 0 and c["limit"] == 0
+
+
+def test_phase_readers():
+    """The rate and tail of the untraced window and of a traced run's
+    traced half, and the card's bytes a flow, each read from its own
+    phase; nothing where the run has none."""
+    from harness.loops import Phase
+
+    run = cpu_cell.load_run().Run("stream", 1, 1.0, flows=4)
+    read = spec.metric_reader
+    assert read("card_bytes_per_flow")(run) is None  # no card peak
+    run.peak_bytes = 1000
+    assert read("card_bytes_per_flow")(run) == 250
+    assert read("traced_gbps.stream")(run) is None
+    run.traced = Phase(calls=20, bytes=4 * 10**9, seconds=2.0,
+                       latencies=[i / 1000 for i in range(1, 21)])
+    assert read("traced_gbps.stream")(run) == pytest.approx(2.0)
+    assert read("traced_p95_ms.stream")(run) == pytest.approx(19.05)
+    assert read("traced_p95_ms.block")(run) is None  # another kind
+    assert read("call_p95_ms")(run) is None  # no untraced window
+    run.window = Phase(calls=1, bytes=10**9, seconds=1.0, latencies=[0.5])
+    assert read("call_p95_ms")(run) == pytest.approx(500.0)
 
 
 @pytest.mark.parametrize("cell,fault", [
@@ -98,20 +122,21 @@ def test_control_fails(cell):
     w = cpu_cell.cell(cell)
     cfg = spec.config(w["config"])
     mix = cpu_cell.small_traffic(spec.traffic(w["traffic"]))
-    tr = T.make(mix, SEED, cpu_cell.PATTERNS, w["chips"])
-    n = 10000
+    tr = T.make(mix, SEED, dict(cfg["ruleset"], patterns=cpu_cell.PATTERNS),
+                w["chips"])
+    R = spec.reference(cfg)
     if mix["kind"] == "flows":
         loop = FlowLoop(None, None, tr, SEED)
         loop.r = 40
-        same = lambda want, _data, _r: want  # noqa: E731
+        same = R.stream_matches
     else:
         loop = BlockLoop(None, None, tr, SEED)
         for _ in range(7):
             loop.record(None)
-        same = lambda want: want  # noqa: E731
-    ck = control.check(loop, cfg, n)
+        same = R.block_matches
+    ck = control.check(loop, cfg)
     assert ck.compared > 0 and ck.missing + ck.extra > 0
-    ref = loop.check(n, answer=same)
+    ref = loop.check(cfg, answer=same)
     assert ref.missing == ref.extra == 0 and ref.compared == ck.compared
 
 
@@ -125,20 +150,39 @@ def _modules(code: str) -> set:
 
 
 def test_import_check(tmp_path):
-    """In fresh processes: a cell's set-up and window and the reference
-    load neither jax nor the JAX package; the reference loads nothing of
-    the program either."""
+    """In a fresh process: a cell's set-up and window load neither jax
+    nor the JAX package."""
     setup = _modules(
         f"import sys; sys.path.insert(0, {str(BENCH / 'tests')!r})\n"
         "import cpu_cell\n"
         f"cpu_cell.run({BLOCK!r}, 3, 0.5, {str(tmp_path)!r})\n")
     assert "hyperscan_tpu_torch" in setup
     assert not setup & {"jax", "jaxlib", "flax", "hyperscan_tpu"}
+
+
+TOY = BENCH / "tests" / "toy"
+CONFIGS = ([(BENCH, p.stem) for p in sorted(BENCH.glob("configs/*.json"))]
+           + [(TOY, p.stem) for p in sorted(TOY.glob("configs/*.json"))])
+
+
+@pytest.mark.parametrize("where,name", CONFIGS, ids=lambda x: str(x)[-24:])
+def test_reference_imports(where, name):
+    """In a fresh process: each configuration's ruleset module, plain
+    reference and control, loaded by name and run over a block, load
+    neither jax, the JAX package, the program nor torch."""
     ref = _modules(
         f"import sys; sys.path.insert(0, {str(BENCH)!r})\n"
+        "from harness import spec\n"
+        f"spec.DIRS.insert(0, spec.pathlib.Path({str(where)!r}))\n"
         "from formulas import benchdata as BD\n"
-        "from reference import snort_rules as R\n"
-        "R.block_matches(BD.gen_corpus(1 << 16, 1, 'iid').tobytes(), 10000)\n")
+        f"cfg = spec.config({name!r}); rs = cfg['ruleset']\n"
+        "assert spec.ruleset(rs).rules(rs)[0]\n"
+        "R = spec.reference(cfg)\n"
+        "data = BD.gen_corpus(1 << 14, 1, 'iid').tobytes()\n"
+        "R.block_matches(data, rs)\n"
+        "R.stream_matches(data, rs, 1460)\n"
+        "stream = cfg['mode'] == 'stream'\n"
+        "R.CONTROLS[cfg['control']](data, rs, *([1460] if stream else []))\n")
     assert not ref & {"jax", "jaxlib", "flax", "hyperscan_tpu",
                       "hyperscan_tpu_torch", "torch"}
 

@@ -37,7 +37,7 @@ def test_config_by_name(c):
     assert cfg["mode"] in ("block", "stream")
     assert dbcache.ruleset(cfg)[0]
     assert (spec.BENCH / cfg["reference"]).exists()
-    assert cfg["control"] in ("single_match", "write_alone")
+    assert cfg["control"] in spec.reference(cfg).CONTROLS
     assert any(w["config"] == c["name"] for w in B["workloads"])
 
 
@@ -109,10 +109,16 @@ def test_cache_key(tmp_path):
 
 def test_kept_files_load():
     """The data files kept for later cells (configurations, mixes and
-    readers that BENCHMARK.json does not name yet) load by name too."""
+    readers that BENCHMARK.json does not name yet) load by name too, and
+    each configuration's ruleset module and reference with them."""
     for p in sorted((spec.BENCH / "configs").glob("*.json")):
         cfg = spec.config(p.stem)
         assert cfg["name"] == p.stem and dbcache.ruleset(cfg)[0]
+        rules = spec.ruleset(cfg["ruleset"])
+        assert rules.shapes(cfg["ruleset"]) >= 1 and callable(rules.plant)
+        ref = spec.reference(cfg)
+        assert callable(ref.block_matches) and callable(ref.stream_matches)
+        assert cfg["control"] in ref.CONTROLS
     for p in sorted((spec.BENCH / "traffic").glob("*.json")):
         assert spec.traffic(p.stem)["kind"] in ("blocks", "flows")
     for p in sorted((spec.BENCH / "metrics").glob("*.py")):

@@ -14,7 +14,9 @@ from harness import traffic as T
 from reference import snort_rules as R
 
 SEEDS = (1, 2**31 + 11)
-N = 300  # rules: the plants' ids are drawn below this
+N = {"formula": "bench", "patterns": 300, "flags": 0}  # plants' ids < 300
+RULES = spec.ruleset(N)
+SHAPES = RULES.shapes(N)
 HISTORY = 37  # bytes of history a flow keeps in the 10k stream database
 
 
@@ -30,7 +32,7 @@ def _small(name):
 
 
 def _shapes(matches):
-    return {i % T.SHAPES for i, _f, _to in matches}
+    return {i % SHAPES for i, _f, _to in matches}
 
 
 def test_size_multiset():
@@ -39,13 +41,13 @@ def test_size_multiset():
                                                1500: 341}
 
 
-@pytest.mark.parametrize("shape", range(T.SHAPES))
+@pytest.mark.parametrize("shape", range(SHAPES))
 def test_rule_plant(shape):
     """A plant is a match, ending at its end, of a rule of its shape."""
     rng = np.random.default_rng(shape)
     for _ in range(200):
-        p = T.rule_plant(rng, N, shape, (0, 48))
-        ends = {(i % T.SHAPES, to) for i, _f, to in R.block_matches(p, N)}
+        p = RULES.plant(rng, N, shape, {"gate_pairs": (0, 48)})
+        ends = {(i % SHAPES, to) for i, _f, to in R.block_matches(p, N)}
         assert (shape, len(p)) in ends
 
 
@@ -78,7 +80,7 @@ def test_rule_blocks():
     or more; the counts differ, and a batch holds every shape."""
     mix = _small("bulk1m")
     most = max(c for c, _w in mix["plants"]["per_block"])
-    assert most >= T.SHAPES
+    assert most >= SHAPES
     t = T.make(mix, 9, N)
     for batch in t.pool:
         answers = [R.block_matches(blk, N) for blk in batch]
@@ -86,7 +88,7 @@ def test_rule_blocks():
         for blk, ms in zip(batch, answers):
             assert any(to > 4096 for _i, _f, to in ms)
             assert len(blk) in {to for _i, _f, to in ms}
-            full += _shapes(ms) == set(range(T.SHAPES))
+            full += _shapes(ms) == set(range(SHAPES))
         assert full >= len(batch) // 4
         assert len({repr(ms) for ms in answers}) == len(batch)
         assert len({len(ms) for ms in answers}) > 1
@@ -121,14 +123,16 @@ def test_flow_plants():
     beyond_history = 0
     for k in t.planted[:24]:
         data = t.stream(int(k), rounds)
-        want = R.stream_matches(data, N, w)
+        want, close = R.stream_matches(data, N, w)
+        assert close == []
+        alone_by_round, _ = R.write_alone(data, N, w)
         crossing = set()
         for r, ms in want.items():
-            alone = set(R.write_alone(data, r, w, N))
+            alone = set(alone_by_round.get(r, []))
             crossing |= _shapes(set(ms) - alone)
             lo = max(0, r * w - HISTORY)
             seen = {(i, f, lo + to) for i, f, to in
                     R.block_matches(data[lo:(r + 1) * w], N)}
             beyond_history += len(_shapes(set(ms) - seen) & {5})
-        assert crossing == set(range(T.SHAPES))
+        assert crossing == set(range(SHAPES))
     assert beyond_history > 0
